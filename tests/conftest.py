@@ -20,3 +20,11 @@ if "xla_force_host_platform_device_count" not in flags:
 import jax  # noqa: E402
 
 jax.config.update("jax_platforms", "cpu")
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU and nvcc (skips without them); run with "
+        "python -m pytest --noconftest -m cuda tests/test_torch_cuda.py",
+    )
