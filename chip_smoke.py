@@ -18,16 +18,32 @@ Phases (any failure raises and the script exits non-zero without a result):
 3. Kernel ``device_hash_codes`` against its plain version on the whole
    663,000-row payload: every element within 1 bf16 ulp; repeated launches
    bitwise identical.
+3b. Kernel ``p1_fused_chain`` at the chunked pipeline's shape (A 73,728
+   rows, two chunks of 294,912 rows): each pass against its plain version
+   (the rule of phase 2), and the chained kernel passes BITWISE one
+   ``p1_fused_closed2`` kernel pass over the concatenated chunks.
+3c. Kernel ``p1_tri_fused`` over the segment loop at n = 131,072 (segments
+   of 32,768 rows, block_m 512): row side and packed future state against
+   the plain version after every segment (the rule of phase 2), and the
+   candidate completeness check against the scores of all 131,072 rows.
+3d. A/B at the 663k scan's own shape (its unique rows, zero-padded to
+   589,824 = 8 segments of 73,728): the full triangular scan (all
+   segments through ``p1_tri_fused``) against the square scan (all through
+   ``p1_fused_closed2``), in the order square, tri, tri, square; per-row
+   qualified counts of the two equal.
 4. ``match_strings`` on the card frame-equal to ``device="cpu"`` at 20,000
    names, and equal to a brute-force fp64 cosine oracle at 5,000 names.
 5. The full self-join at 663,000 names on the card: wall time, phases,
-   escalation rungs, kernel launches, and the output row count.
+   escalation rungs, kernel launches, and the output row count; then the
+   same with the column-chunked pipeline (SG_TPU_CHUNKED_P1=1) at G = 2
+   and G = 3 chunks: the same frame, with p1_wait and wall printed.
 
 Without a CUDA GPU, or without the repository beside it, it exits non-zero
 and prints no result.
 """
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -46,6 +62,11 @@ N_ORACLE = 5_000
 # Score tolerance between the kernel and its plain version: f32 sums of 512
 # bf16 products in different orders differ by far less than this.
 TOL = 1e-5
+# Kernels each path launches: the default self-join (and its kt=2
+# escalation), and the column-chunked one (its escalation may add
+# p1_fused_closed2).
+DEFAULT_PATH = ("p1_fused_closed2", "device_hash_codes")
+CHUNKED_PATH = ("p1_fused_chain", "device_hash_codes")
 # Published H100 SXM peaks (dense bf16 tensor-core rate, HBM3 bandwidth).
 PEAK_BF16 = 989e12
 PEAK_BYTES = 3.35e12
@@ -55,9 +76,11 @@ def log(*args):
     print(*args, flush=True)
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Mean device time of ``fn`` over ``reps`` launches after one warm-up."""
-    fn()
+def cuda_ms(fn, reps: int, warmup: bool = True) -> float:
+    """Mean device time of ``fn`` over ``reps`` launches, after one warm-up
+    launch unless ``warmup`` is False."""
+    if warmup:
+        fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -78,43 +101,60 @@ def gpu_line() -> str:
 
 
 # ------------------------------------------------------------------ phase 2
-def check_p1(K, h, thr, m=32_768, n=131_072):
-    tile, cand_c = 4096, 64
-    a = h[:m].contiguous()
-    b = h[:n].contiguous()
-    ship_k, cnt_k, tmax_k, bnd_k, _ = K.p1_fused_closed2(a, b, thr, tile, cand_c)
-    ship_p, cnt_p, tmax_p, bnd_p, _ = K.p1_fused_closed2_plain(a, b, thr, tile, cand_c)
-    torch.cuda.synchronize()
-    valid = ship_k >= 0
-    assert bool((valid[:, 1:] <= valid[:, :-1]).all()), "ship prefix invariant"
-    assert int(cnt_k.sum()) > 0 and int((tmax_k > 2).sum()) > 0
+def compare_scan(what, got, want, a, b, thr):
+    """Hold a phase-1 scan's kernel outputs ``got`` against its plain
+    version's ``want``, each ``(ship, counts, tmax, bound[, values])`` per
+    row of ``a`` (ship: column where the value is finite, else -1): ship
+    sets, counts and tmax equal, bounds and values within TOL -- except
+    rows with a score (against the columns ``b``) within TOL of the
+    threshold or of another score, whose f32 sums may round across either.
+    Returns ``(max |diff| over the other rows, borderline rows)``."""
+    m = a.shape[0]
+    ship_k, cnt_k, tmax_k, bnd_k = got[:4]
+    ship_p, cnt_p, tmax_p, bnd_p = want[:4]
     set_diff = (torch.sort(ship_k, 1).values != torch.sort(ship_p, 1).values).any(1)
     cnt_diff = (cnt_k != cnt_p) | (tmax_k != tmax_p)
-    both_neg = torch.isneginf(bnd_k) & torch.isneginf(bnd_p)
-    bnd_gap = torch.where(both_neg, torch.zeros_like(bnd_k), (bnd_k - bnd_p).abs())
-    bnd_diff = ~(bnd_gap <= TOL)
-    rows = torch.nonzero(set_diff | cnt_diff | bnd_diff).flatten().tolist()
-    assert len(rows) <= 2000, f"p1: {len(rows)} rows differ"
+    gaps = [(bnd_k, bnd_p)] + ([(got[4], want[4])] if len(got) > 4 else [])
+    gap = torch.zeros(m, dtype=torch.float32, device=a.device)
+    for x, y in gaps:
+        both_neg = torch.isneginf(x) & torch.isneginf(y)
+        g = torch.where(both_neg, torch.zeros_like(x), (x - y).abs())
+        gap = torch.maximum(gap, g.reshape(m, -1).max(1).values.nan_to_num(float("inf")))
+    rows = torch.nonzero(set_diff | cnt_diff | ~(gap <= TOL)).flatten().tolist()
+    assert len(rows) <= 2000, f"{what}: {len(rows)} rows differ"
     b64 = b.double()
-    borderline = []
     for r in rows:
         s = b64 @ a[r].double()
         near_thr = bool(((s - thr).abs() <= TOL).any())
         q = torch.sort(s[s >= thr - TOL], descending=True).values
         near_tie = bool(((q[:-1] - q[1:]) <= TOL).any()) if len(q) > 1 else False
         assert near_thr or near_tie, (
-            f"p1 row {r}: kernel and plain differ with no score near the "
-            f"threshold or a tie (counts {int(cnt_k[r])}/{int(cnt_p[r])}, "
+            f"{what} row {r}: kernel and plain differ with no score near the "
+            f"threshold or a tie (counts {cnt_k[r].item()}/{cnt_p[r].item()}, "
             f"bound {float(bnd_k[r])}/{float(bnd_p[r])})"
         )
-        borderline.append(r)
     keep = torch.ones(m, dtype=torch.bool, device=a.device)
-    if borderline:
-        keep[torch.tensor(borderline, device=a.device)] = False
-    max_err = float(bnd_gap[keep].max())
+    if rows:
+        keep[torch.tensor(rows, device=a.device)] = False
+    return float(gap[keep].max()), len(rows)
+
+
+def check_p1(K, h, thr, m=32_768, n=131_072):
+    tile, cand_c = 4096, 64
+    a = h[:m].contiguous()
+    b = h[:n].contiguous()
+    got = K.p1_fused_closed2(a, b, thr, tile, cand_c)
+    want = K.p1_fused_closed2_plain(a, b, thr, tile, cand_c)
+    torch.cuda.synchronize()
+    ship_k, cnt_k, tmax_k = got[:3]
+    valid = ship_k >= 0
+    assert bool((valid[:, 1:] <= valid[:, :-1]).all()), "ship prefix invariant"
+    assert int(cnt_k.sum()) > 0 and int((tmax_k > 2).sum()) > 0
+    max_err, n_border = compare_scan("p1_fused_closed2", got[:4], want[:4],
+                                     a, b, thr)
     log(f"p1_fused_closed2 vs plain: m={m} n={n} d=512 tile={tile} C={cand_c} "
-        f"thr={thr!r}: {m - len(borderline)} rows equal, "
-        f"{len(borderline)} borderline rows (score within {TOL} of thr or "
+        f"thr={thr!r}: {m - n_border} rows equal, "
+        f"{n_border} borderline rows (score within {TOL} of thr or "
         f"of a tie), max |bound diff| {max_err}")
 
     ms = cuda_ms(lambda: K.p1_fused_closed2(a, b, thr, tile, cand_c), 5)
@@ -180,6 +220,204 @@ def check_hash(K, M, src, dev):
         f"bound_ms={bound_ms} ({nbytes / (ms * 1e-3) / 1e9} GB/s)")
     return h_k, dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
                      bound_ms=bound_ms, bound_by="bytes", library_ms=lib_ms)
+
+
+# ----------------------------------------------------------------- phase 3b
+def check_chain(K, h, thr, m=73_728, chunk=294_912):
+    """``p1_fused_chain`` at the 663k chunked pipeline's shape: a segment of
+    73,728 rows against its first chunk at G = 2 (4 segments) and one more
+    of the same width."""
+    tile, cand_c = 4096, 64
+    a = h[:m].contiguous()
+    b = h[:2 * chunk].contiguous()
+    st_k = K.p1_chain_init(m, cand_c, a.device)
+    st_p = K.p1_chain_init(m, cand_c, a.device)
+    max_err, n_border, plain_ms = 0.0, 0, None
+    for lo in (0, chunk):
+        bc = b[lo:lo + chunk]
+        got = K.p1_fused_chain(a, bc, thr, lo, st_k, tile, cand_c)
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        want = K.p1_fused_chain_plain(a, bc, thr, lo, st_p, tile, cand_c)
+        t1.record()
+        torch.cuda.synchronize()
+        if lo == 0:  # the plain version is timed on the pass timed below
+            plain_ms = t0.elapsed_time(t1)
+        err, nb = compare_scan(f"p1_fused_chain pass at col {lo}", got[:4],
+                               want[:4], a, b[:lo + chunk], thr)
+        max_err, n_border = max(max_err, err), n_border + nb
+    one = K.p1_fused_closed2(a, b, thr, tile, cand_c)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("ship", "counts", "tmax", "bound", "max_cnt"), got, one):
+        assert torch.equal(g, w), f"chained passes != one pass: {name}"
+    log(f"p1_fused_chain vs plain: m={m} chunks 2 x {chunk} d=512: every pass "
+        f"equal but {n_border} borderline rows, max |bound diff| {max_err}; "
+        f"2 chained kernel passes == one p1_fused_closed2 pass over "
+        f"{2 * chunk} columns (bitwise)")
+
+    st = K.p1_chain_init(m, cand_c, a.device)
+    bc = b[:chunk]
+    ms = cuda_ms(lambda: K.p1_fused_chain(a, bc, thr, 0, st, tile, cand_c), 3)
+    lib_ms = cuda_ms(lambda: torch.mm(a, bc.t()), 2)
+    flops = 2.0 * m * chunk * 512
+    nbytes = (m + chunk) * 512 * 2 + m * cand_c * 12 + m * 28
+    bound_ms = max(flops / PEAK_BF16, nbytes / PEAK_BYTES) * 1e3
+    log(f"p1_fused_chain (one pass, A {m} x chunk {chunk}): kernel_ms={ms} "
+        f"plain_ms={plain_ms} library_ms(torch.mm bf16)={lib_ms} "
+        f"bound_ms={bound_ms} ({flops / (ms * 1e-3) / 1e12} TFLOP/s)")
+    return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by="operations", library_ms=lib_ms)
+
+
+# ----------------------------------------------------------------- phase 3c
+def _tri_rows(v, c, meta):
+    """A packed row side as compare_scan's (ship, counts, tmax, bound,
+    values)."""
+    return (torch.where(v > float("-inf"), c, -1), meta[:, 0], meta[:, 1],
+            meta[:, 2], v)
+
+
+def tri_completeness(K, b, thr, rows_side, fpack, cand_c, tile):
+    """Every row's row side (rows_side = (rv, rc, rmeta) of all rows) plus
+    its future state must count every qualified column, hold the largest
+    per-tile count, and cover every qualified column or bound it (each
+    side's own top-C truncation, the drop bounds) -- against torch's f32
+    scores, rows with a score within TOL of the threshold excepted."""
+    n = b.shape[0]
+    nt = n // tile
+    rv, rc, rm = rows_side
+    fv, fc, fm = K.tri_future_unpack(fpack)
+    bf = b.float()
+    neg = torch.tensor(float("-inf"), device=b.device)
+    bad, near_rows, qual_total = 0, 0, 0
+    for lo in range(0, n, 4096):
+        hi = lo + 4096
+        S = bf[lo:hi] @ bf.t()
+        qual = S >= thr
+        near = ((S - thr).abs() <= TOL).any(1)
+        cnt = qual.sum(1).float()
+        per_tile = qual.view(hi - lo, nt, tile).sum(2).max(1).values.float()
+        vs = torch.cat([rv[lo:hi], fv[lo:hi]], 1)
+        cs = torch.cat([rc[lo:hi], fc[lo:hi]], 1).long()
+        fin = vs > neg
+        covered = torch.zeros_like(qual)
+        flat = (torch.arange(hi - lo, device=b.device)[:, None] * n + cs)[fin]
+        covered.view(-1)[flat] = True
+        trunc_r = torch.where(rm[lo:hi, 3] > cand_c, rv[lo:hi, cand_c - 1], neg)
+        trunc_f = torch.where(fm[lo:hi, 3] > K.TRI_FUT_C, fv[lo:hi, -1], neg)
+        bound = torch.stack([rm[lo:hi, 2], fm[lo:hi, 2], trunc_r, trunc_f]).max(0).values
+        miss = (qual & ~covered & (S > bound[:, None] + TOL)).any(1)
+        ok = ((rm[lo:hi, 0] + fm[lo:hi, 0] == cnt)
+              & (torch.maximum(rm[lo:hi, 1], fm[lo:hi, 1]) == per_tile) & ~miss)
+        bad += int((~ok & ~near).sum())
+        near_rows += int((~ok & near).sum())
+        qual_total += int(cnt.sum())
+    assert bad == 0, f"p1_tri_fused: {bad} rows incomplete"
+    return qual_total, near_rows
+
+
+def check_tri(K, h, thr, n=131_072, seg_rows=32_768):
+    """The segment loop of the triangular scan at n = 131,072."""
+    tile, cand_c, bm = 4096, 64, 512
+    b = h[:n].contiguous()
+    cpg = seg_rows // tile
+    f_k = K.tri_future_init(n, b.device)
+    f_p = K.tri_future_init(n, b.device)
+    rows_k = []
+    max_err, n_border = 0.0, 0
+    for s in range(n // seg_rows):
+        a = b[s * seg_rows:(s + 1) * seg_rows]
+        rv, rc, rm, _ = K.p1_tri_fused(a, b, f_k, s * cpg, thr, tile, cand_c, bm)
+        pv, pc, pm, _ = K.p1_tri_fused_plain(a, b, f_p, s * cpg, thr, tile, cand_c, bm)
+        rows_k.append((rv, rc, rm))
+        err, nb = compare_scan(f"p1_tri_fused segment {s} rows",
+                               _tri_rows(rv, rc, rm), _tri_rows(pv, pc, pm), a, b, thr)
+        max_err, n_border = max(max_err, err), n_border + nb
+    err, nb = compare_scan("p1_tri_fused future state",
+                           _tri_rows(*K.tri_future_unpack(f_k)),
+                           _tri_rows(*K.tri_future_unpack(f_p)), b, b, thr)
+    max_err, n_border = max(max_err, err), n_border + nb
+    rows_side = tuple(torch.cat(x) for x in zip(*rows_k))
+    qual_total, near = tri_completeness(K, b, thr, rows_side, f_k, cand_c, tile)
+    log(f"p1_tri_fused vs plain: n={n} segments of {seg_rows} block_m={bm} "
+        f"C={cand_c}: row sides and future state equal but {n_border} "
+        f"borderline rows, max |diff| {max_err}; complete: {qual_total} "
+        f"qualified pairs counted and covered ({near} rows near thr excepted)")
+
+    # one launch with a column side: segment 0 (A 32,768 x all 131,072 columns)
+    a = b[:seg_rows]
+    fk = K.tri_future_init(n, b.device)
+    ms = cuda_ms(lambda: K.p1_tri_fused(a, b, fk, 0, thr, tile, cand_c, bm), 3)
+    fp = K.tri_future_init(n, b.device)
+    plain_ms = cuda_ms(
+        lambda: K.p1_tri_fused_plain(a, b, fp, 0, thr, tile, cand_c, bm), 1,
+        warmup=False)
+    lib_ms = cuda_ms(lambda: torch.mm(a, b.t()), 3)
+    flops = 2.0 * seg_rows * n * 512
+    n_fut = n - seg_rows
+    nbytes = (seg_rows + n) * 512 * 2 + n_fut * 512 * 2 + seg_rows * (cand_c * 8 + 32)
+    bound_ms = max(flops / PEAK_BF16, nbytes / PEAK_BYTES) * 1e3
+    log(f"p1_tri_fused (segment 0: A {seg_rows} x {n} columns, {n_fut} future): "
+        f"kernel_ms={ms} plain_ms={plain_ms} library_ms(torch.mm bf16 over "
+        f"the same tile pairs)={lib_ms} bound_ms={bound_ms} "
+        f"({flops / (ms * 1e-3) / 1e12} TFLOP/s)")
+    return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by="operations", library_ms=lib_ms)
+
+
+# ----------------------------------------------------------------- phase 3d
+def tri_square_ab(K, M, h, src, thr, seg_rows=73_728, n_pad=589_824):
+    """Full triangular scan against the full square scan at the 663k scan's
+    shape: the unique rows the matcher scans (first row of each
+    clean-equality group), zero-padded to whole segments."""
+    tile, cand_c, bm = 4096, 64, 512
+    codes = M._clean_codes(src)
+    _, first = np.unique(codes, return_index=True)
+    first = np.sort(first)
+    n_u = len(first)
+    assert n_u <= n_pad
+    b = torch.zeros((n_pad, 512), dtype=torch.bfloat16, device=h.device)
+    b[:n_u] = h[torch.from_numpy(first).to(h.device)]
+    n_seg, cpg = n_pad // seg_rows, seg_rows // tile
+
+    def square():
+        return [K.p1_fused_closed2(b[s * seg_rows:(s + 1) * seg_rows], b, thr,
+                                   tile, cand_c)[1] for s in range(n_seg)]
+
+    def tri():
+        f = K.tri_future_init(n_pad, b.device)
+        rm = [K.p1_tri_fused(b[s * seg_rows:(s + 1) * seg_rows], b, f, s * cpg,
+                             thr, tile, cand_c, bm)[2] for s in range(n_seg)]
+        return rm, f
+
+    def timed(fn):
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0.record()
+        out = fn()
+        t1.record()
+        torch.cuda.synchronize()
+        return t0.elapsed_time(t1), out
+
+    sq1, counts = timed(square)
+    K.reset_launches()
+    tr1, (rm, f) = timed(tri)
+    tri_launches = K.LAUNCHES["p1_tri_fused"]
+    assert tri_launches == n_seg, K.LAUNCHES
+    tr2, _ = timed(tri)
+    sq2, _ = timed(square)
+    sq_counts = torch.cat(counts).float()
+    tri_counts = torch.cat(rm)[:, 0] + K.tri_future_unpack(f)[2][:, 0]
+    n_diff = int((sq_counts != tri_counts).sum())
+    log(f"tri/square A/B: {n_u} unique rows padded to {n_pad}, {n_seg} segments "
+        f"of {seg_rows}, d=512, tile={tile}, block_m={bm}: square scan "
+        f"{sq1} / {sq2} ms, triangular scan {tr1} / {tr2} ms (order square, "
+        f"tri, tri, square); {int(sq_counts.sum())} qualified pairs, "
+        f"{n_diff} rows whose counts differ")
+    assert n_diff == 0, f"tri/square: {n_diff} rows count differently"
+    return tri_launches
 
 
 # ------------------------------------------------------------------ phase 4
@@ -252,8 +490,15 @@ def main() -> int:
         from string_grouper_tpu_torch.native.build import BUILD_ERROR
 
         raise RuntimeError(f"no byte-level payload (native build: {BUILD_ERROR})")
+    thr = float(M.effective_threshold(0.8))
     h, res_hash = check_hash(K, M, ell_full.device_src, dev)
-    res_p1 = check_p1(K, h, float(M.effective_threshold(0.8)))
+    res_p1 = check_p1(K, h, thr)
+    torch.cuda.empty_cache()
+    res_chain = check_chain(K, h, thr)
+    torch.cuda.empty_cache()
+    res_tri = check_tri(K, h, thr)
+    torch.cuda.empty_cache()
+    tri_launches = tri_square_ab(K, M, h, ell_full.device_src, thr)
     del h, ell_full
     torch.cuda.empty_cache()
 
@@ -264,7 +509,7 @@ def main() -> int:
     card_df = sgt.match_strings(s20)
     t_card = time.perf_counter() - t0
     launches = dict(K.LAUNCHES)
-    assert all(v > 0 for v in launches.values()), f"20k launches {launches}"
+    assert all(launches[k] > 0 for k in DEFAULT_PATH), f"20k launches {launches}"
     t0 = time.perf_counter()
     cpu_df = sgt.match_strings(s20, device="cpu")
     t_cpu = time.perf_counter() - t0
@@ -274,32 +519,55 @@ def main() -> int:
     K.reset_launches()
     oracle_frame_check(sgt, TfidfEncoder, StringGrouperConfig,
                        synthetic_company_names(N_ORACLE))
-    assert all(v > 0 for v in K.LAUNCHES.values()), f"5k launches {K.LAUNCHES}"
+    assert all(K.LAUNCHES[k] > 0 for k in DEFAULT_PATH), f"5k launches {K.LAUNCHES}"
 
-    # ---- phase 5: the full self-join --------------------------------------
+    # ---- phase 5: the full self-join, default and chunked ------------------
     s_full = pd.Series(names_full)
-    K.reset_launches()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    grouper = sgt.StringGrouper(s_full).fit()
-    out = grouper.get_matches()
-    wall = time.perf_counter() - t0
-    launches = dict(K.LAUNCHES)
-    log(f"full self-join: n={N_FULL} wall {wall:.3f} s, {len(out)} rows; "
-        f"launches {launches}")
-    log("timings: " + json.dumps(
-        {k: (round(v, 4) if isinstance(v, float) else v)
-         for k, v in grouper.timings.seconds.items()}))
-    assert all(v > 0 for v in launches.values()), f"663k launches {launches}"
-    assert len(out) == ROWS_FULL, f"{len(out)} output rows, expected {ROWS_FULL}"
-    assert np.isfinite(out.similarity.to_numpy()).all()
+
+    def self_join(label, path):
+        K.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        grouper = sgt.StringGrouper(s_full).fit()
+        frame = grouper.get_matches()
+        wall = time.perf_counter() - t0
+        launches = dict(K.LAUNCHES)
+        secs = grouper.timings.seconds
+        log(f"full self-join ({label}): n={N_FULL} wall {wall:.3f} s, "
+            f"match.p1_wait {secs['match.p1_wait']:.3f} s, {len(frame)} rows; "
+            f"launches {launches}")
+        log("timings: " + json.dumps(
+            {k: (round(v, 4) if isinstance(v, float) else v)
+             for k, v in secs.items()}))
+        assert all(launches[k] > 0 for k in path), f"663k launches {launches}"
+        assert len(frame) == ROWS_FULL, f"{len(frame)} output rows, expected {ROWS_FULL}"
+        assert np.isfinite(frame.similarity.to_numpy()).all()
+        return frame, launches
+
+    out, launches = self_join("default", DEFAULT_PATH)
+    os.environ["SG_TPU_CHUNKED_P1"] = "1"
+    chain_launches = None
+    for groups in ("2", "3"):
+        os.environ["SG_TPU_CHUNKED_P1_GROUPS"] = groups
+        frame, l_chunked = self_join(f"SG_TPU_CHUNKED_P1=1, G={groups}", CHUNKED_PATH)
+        pd.testing.assert_frame_equal(frame, out)
+        chain_launches = chain_launches or l_chunked["p1_fused_chain"]
+        del frame
+    del os.environ["SG_TPU_CHUNKED_P1"], os.environ["SG_TPU_CHUNKED_P1_GROUPS"]
+    log("chunked self-joins: frames equal to the default run's")
 
     src = "string_grouper_tpu_torch/csrc/{}.cu"
+    pk = "string_grouper_tpu/ops/pallas_kernels.py:{}"
     kernels = [
         dict(name="p1_fused_closed2", route="cuda",
-             source=src.format("p1_fused_closed2"),
-             replaces="string_grouper_tpu/ops/pallas_kernels.py:117",
+             source=src.format("p1_fused_closed2"), replaces=pk.format(117),
              launches=launches["p1_fused_closed2"], **res_p1),
+        dict(name="p1_fused_chain", route="cuda",
+             source=src.format("p1_fused_chain"), replaces=pk.format(275),
+             launches=chain_launches, **res_chain),
+        dict(name="p1_tri_fused", route="cuda",
+             source=src.format("p1_tri_fused"), replaces=pk.format(626),
+             launches=tri_launches, **res_tri),
         dict(name="device_hash_codes", route="cuda",
              source=src.format("device_hash_codes"),
              replaces="string_grouper_tpu/ops/matcher.py:398",

@@ -21,6 +21,7 @@ from .corpus import TfidfEncoder
 from .frame import assemble_matches
 from .native import set_native_threads
 from .ops.matcher import (
+    chunked_p1_will_engage,
     duplicate_codes,
     prefetch_corpus_hash,
     topn_cosine_matches,
@@ -122,12 +123,20 @@ class StringGrouper:
                 None if is_self else self._duplicates,
                 defer_fill=True,
             )
-            prefetch_corpus_hash(master_ell, cfg.hash_dim, self._device)
-            if not is_self:
-                prefetch_corpus_hash(dupes_ell, cfg.hash_dim, self._device)
+            n_right = len(self._right_Series)
+            max_n = n_right if self._max_n_matches is None else self._max_n_matches
+            # Skipped when the matcher will pipeline column-chunked uploads
+            # instead (opt-in, large self-joins): a full upload queued
+            # ahead of the chunks would serialize the very head the
+            # pipeline overlaps with the scan.
+            if not chunked_p1_will_engage(
+                master_ell, is_self, cfg.min_similarity, max_n, cfg.hash_dim,
+                cfg.left_chunk, cfg.right_tile, self._device,
+            ):
+                prefetch_corpus_hash(master_ell, cfg.hash_dim, self._device)
+                if not is_self:
+                    prefetch_corpus_hash(dupes_ell, cfg.hash_dim, self._device)
 
-        n_right = len(self._right_Series)
-        max_n = n_right if self._max_n_matches is None else self._max_n_matches
         with self.timings.phase("match"):
             left_codes = duplicate_codes(self._master, master_ell)
             right_codes = None

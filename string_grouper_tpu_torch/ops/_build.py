@@ -26,7 +26,8 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
 ]
-KERNELS = ("p1_fused_closed2", "device_hash_codes")
+KERNELS = ("p1_fused_closed2", "p1_fused_chain", "p1_tri_fused",
+           "device_hash_codes")
 
 _p = ctypes.c_void_p
 _i = ctypes.c_int64
@@ -35,6 +36,14 @@ _f = ctypes.c_float
 _ARGTYPES = {
     # A, B, thr, m, n, d, tile, cand_c, ship, counts, tmax, bound, vbuf, stream
     "p1_fused_closed2": [_p, _p, _f, _i, _i, _i, _i, _i, _p, _p, _p, _p, _p, _p],
+    # A, B, thr, col_off, m, n, d, tile, cand_c, v, c, meta, tb, ship, counts,
+    # tmax, bound, stream
+    "p1_fused_chain": [_p, _p, _f, _i, _i, _i, _i, _i, _i,
+                       _p, _p, _p, _p, _p, _p, _p, _p, _p],
+    # A, B, thr, j0, seg_rows, n_pad, d, tile, cand_c, block_m, rv, rc,
+    # rmeta, fpack, stats_i, stats_f, stream
+    "p1_tri_fused": [_p, _p, _f, _i, _i, _i, _i, _i, _i, _i,
+                     _p, _p, _p, _p, _p, _p, _p],
     # codes, packed, stride, width, inv_norm, table, idf, n, dim, base,
     # ngram, out, stream
     "device_hash_codes": [_p, _i, _i, _i, _p, _p, _p, _i, _i, _i, _i, _p, _p],
@@ -61,7 +70,11 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (_CSRC / f"{name}.cu").read_bytes()
+    # Every header under csrc/ is part of the key: an edited header must
+    # not reuse a library built from the old one.
+    src = (_CSRC / f"{name}.cu").read_bytes() + b"".join(
+        p.read_bytes() for p in sorted(_CSRC.glob("*.cuh"))
+    )
     tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}_{tag}.so"
 

@@ -10,6 +10,13 @@ main path went through the kernels.
 
 * ``p1_fused_closed2`` (csrc/p1_fused_closed2.cu) replaces the Pallas kernel
   of the same name (string_grouper_tpu/ops/pallas_kernels.py:117-179).
+* ``p1_fused_chain`` (csrc/p1_fused_chain.cu) replaces the Pallas kernel of
+  the same name (pallas_kernels.py:275-358): the same pass over one right
+  column chunk, resuming from the previous chunk's state.
+* ``p1_tri_fused`` (csrc/p1_tri_fused.cu) replaces the Pallas kernel of the
+  same name (pallas_kernels.py:626-726): the triangular self-join, each
+  tile pair multiplied once.
+  The three share their scan in csrc/p1_scan.cuh.
 * ``device_hash_codes`` (csrc/device_hash_codes.cu) replaces the XLA
   program ``_device_hash_codes`` (string_grouper_tpu/ops/matcher.py:398-464).
 """
@@ -85,49 +92,89 @@ def _rank_insert2(v, c, p0, p1, q0, q1):
     return new_v, new_c
 
 
+def _tile_top2(s: torch.Tensor, thr: float, dim: int):
+    """Closed-form top-2 of a thresholded score block along ``dim``
+    (``_p1_body``'s reductions): ``(cnt, s1, vmax, cmax, vmax2)`` -- the
+    qualified count, the sum of the qualified indices, the maximum and its
+    first index (``jnp.argmax``), and the maximum with that index masked."""
+    mask = s >= thr
+    ubm = torch.where(mask, s, _NEG)
+    shape = [1] * s.dim()
+    shape[dim] = s.shape[dim]
+    idx = torch.arange(s.shape[dim], dtype=torch.int32, device=s.device).view(shape)
+    cnt = mask.sum(dim, dtype=torch.int32)
+    s1 = torch.where(mask, idx, 0).sum(dim, dtype=torch.int32)
+    vmax = ubm.max(dim).values
+    cmax = ubm.argmax(dim).to(torch.int32)  # first maximum, as jnp.argmax
+    vmax2 = ubm.scatter(dim, cmax.unsqueeze(dim).long(), _NEG).max(dim).values
+    return cnt, s1, vmax, cmax, vmax2
+
+
+def p1_chain_init(m: int, cand_c: int, device=None):
+    """Initial state of the chained phase 1 (``p1_chain_init``,
+    pallas_kernels.py:259-272): ``(v, c, meta, tb)`` -- the running top-C
+    values (-inf) and columns, the per-row counters ``meta`` (m, 3) int32
+    [counts, tmax, nfin] and the per-tile drop bound ``tb`` (-inf).  The
+    counters are int32, so they stay exact at any corpus size (the JAX
+    kernel packs them into f32, exact below 2^24)."""
+    return (
+        torch.full((m, cand_c), _NEG, dtype=torch.float32, device=device),
+        torch.zeros((m, cand_c), dtype=torch.int32, device=device),
+        torch.zeros((m, 3), dtype=torch.int32, device=device),
+        torch.full((m,), _NEG, dtype=torch.float32, device=device),
+    )
+
+
+def p1_fused_chain_plain(a_hash, b_chunk, thr_eff: float, col_off: int,
+                         state, tile: int = 4096, cand_c: int = 64):
+    """Plain PyTorch version of one chained phase-1 pass
+    (``_p1_chain_body``, pallas_kernels.py:183-257): ``_p1_body`` over the
+    column chunk ``b_chunk`` (global columns ``col_off`` ..), resuming from
+    ``state = (v, c, meta, tb)`` (``p1_chain_init``) and writing the new
+    state back into those tensors.  Chained passes over tile-aligned chunks
+    are bitwise one pass over the concatenated columns.  Returns ``(ship,
+    counts, tmax, bound, max_cnt, state)``; ship and bound cover the
+    columns seen so far."""
+    v0, c0, meta, tb0 = state
+    a = a_hash.float()
+    thr = float(thr_eff)
+    v, c, tb = v0, c0, tb0
+    counts, tmax, nfin = meta[:, 0], meta[:, 1], meta[:, 2]
+    for j in range(b_chunk.shape[0] // tile):
+        s = a @ b_chunk[j * tile:(j + 1) * tile].float().T
+        cnt, s1, vmax, cmax, vmax2 = _tile_top2(s, thr, 1)
+        have1, have2 = cnt >= 1, cnt == 2
+        off = col_off + j * tile
+        p0 = torch.where(have1, vmax, _NEG)
+        p1 = torch.where(have2, vmax2, _NEG)
+        q0 = torch.where(have1, cmax, 0) + off
+        q1 = torch.where(have2, s1 - cmax, 0) + off
+        counts = counts + cnt
+        tmax = torch.maximum(tmax, cnt)
+        tb = torch.maximum(tb, torch.where(cnt > 2, vmax2, _NEG))
+        nfin = nfin + have1.to(torch.int32) + have2.to(torch.int32)
+        v, c = _rank_insert2(v, c, p0, p1, q0, q1)
+    v0.copy_(v)
+    c0.copy_(c)
+    meta.copy_(torch.stack([counts, tmax, nfin], 1))
+    tb0.copy_(tb)
+    trunc = torch.where(nfin > cand_c, v[:, cand_c - 1], _NEG)
+    bound = torch.maximum(tb, trunc)
+    ship = torch.where(v > _NEG, c, -1)
+    return ship, counts, tmax, bound, tmax.max(), state
+
+
 def p1_fused_closed2_plain(a_hash, b_hash, thr_eff: float, tile: int = 4096,
                            cand_c: int = 64):
     """Plain PyTorch version of the fused phase-1 pass (``_p1_body``,
     pallas_kernels.py:47-114): per logical tile of ``tile`` columns, the
     f32 product of the bf16 inputs, threshold, closed-form top-2, per-row
     counters and drop bound, and the rank insert into a running top-C.
-    Returns ``(ship, counts, tmax, bound, max_cnt)``."""
-    m = a_hash.shape[0]
-    n = b_hash.shape[0]
-    dev = a_hash.device
-    a = a_hash.float()
-    thr = float(thr_eff)
-    v = torch.full((m, cand_c), _NEG, dtype=torch.float32, device=dev)
-    c = torch.zeros((m, cand_c), dtype=torch.int32, device=dev)
-    counts = torch.zeros(m, dtype=torch.int32, device=dev)
-    tmax = torch.zeros(m, dtype=torch.int32, device=dev)
-    nfin = torch.zeros(m, dtype=torch.int32, device=dev)
-    tb = torch.full((m,), _NEG, dtype=torch.float32, device=dev)
-    col = torch.arange(tile, dtype=torch.int32, device=dev)
-    for j in range(n // tile):
-        s = a @ b_hash[j * tile:(j + 1) * tile].float().T
-        mask = s >= thr
-        ubm = torch.where(mask, s, _NEG)
-        cnt = mask.sum(1, dtype=torch.int32)
-        s1 = torch.where(mask, col, 0).sum(1, dtype=torch.int32)
-        vmax = ubm.max(1).values
-        cmax = ubm.argmax(1).to(torch.int32)  # first maximum, as jnp.argmax
-        vmax2 = ubm.scatter(1, cmax[:, None].long(), _NEG).max(1).values
-        have1, have2 = cnt >= 1, cnt == 2
-        off = j * tile
-        p0 = torch.where(have1, vmax, _NEG)
-        p1 = torch.where(have2, vmax2, _NEG)
-        q0 = torch.where(have1, cmax, 0) + off
-        q1 = torch.where(have2, s1 - cmax, 0) + off
-        counts += cnt
-        tmax = torch.maximum(tmax, cnt)
-        tb = torch.maximum(tb, torch.where(cnt > 2, vmax2, _NEG))
-        nfin += have1.to(torch.int32) + have2.to(torch.int32)
-        v, c = _rank_insert2(v, c, p0, p1, q0, q1)
-    trunc = torch.where(nfin > cand_c, v[:, cand_c - 1], _NEG)
-    bound = torch.maximum(tb, trunc)
-    ship = torch.where(v > _NEG, c, -1)
-    return ship, counts, tmax, bound, tmax.max()
+    Returns ``(ship, counts, tmax, bound, max_cnt)``: one chained pass from
+    the initial state."""
+    state = p1_chain_init(a_hash.shape[0], cand_c, a_hash.device)
+    return p1_fused_chain_plain(a_hash, b_hash, thr_eff, 0, state, tile,
+                                cand_c)[:5]
 
 
 def p1_fused_closed2(a_hash: torch.Tensor, b_hash: torch.Tensor,
@@ -167,6 +214,248 @@ def p1_fused_closed2(a_hash: torch.Tensor, b_hash: torch.Tensor,
     _build.check("p1_fused_closed2", err)
     LAUNCHES["p1_fused_closed2"] += 1
     return ship, counts, tmax, bound, tmax.max()
+
+
+def p1_fused_chain(a_hash: torch.Tensor, b_chunk: torch.Tensor,
+                   thr_eff: float, col_off: int, state, tile: int = 4096,
+                   cand_c: int = 64):
+    """One chained phase-1 pass over a right column chunk whose first
+    global column is ``col_off``: ``(ship, counts, tmax, bound, max_cnt,
+    state)``.  The state ``(v, c, meta, tb)`` (``p1_chain_init``) is
+    updated in place, as the JAX kernel's ``input_output_aliases`` do; the
+    column ids of -inf slots in ``c`` are unspecified (the kernel skips the
+    inserts of tiles without a qualified column), every consumer masks
+    them.  With tile-aligned chunks, the last pass's results are bitwise
+    ``p1_fused_closed2`` over the concatenated chunks.  CUDA tensors launch
+    csrc/p1_fused_chain.cu; CPU tensors run the plain version."""
+    m, d = a_hash.shape
+    n = b_chunk.shape[0]
+    if not a_hash.is_cuda:
+        return p1_fused_chain_plain(a_hash, b_chunk, thr_eff, col_off, state,
+                                    tile, cand_c)
+    v, c, meta, tb = state
+    _check_tensors("p1_fused_chain", a_hash, b_chunk, v, c, meta, tb)
+    if a_hash.dtype != torch.bfloat16 or b_chunk.dtype != torch.bfloat16:
+        raise TypeError("p1_fused_chain: a_hash and b_chunk must be bfloat16")
+    if (v.dtype, c.dtype, meta.dtype, tb.dtype) != (
+        torch.float32, torch.int32, torch.int32, torch.float32
+    ):
+        raise TypeError("p1_fused_chain: state must be (f32, i32, i32, f32)")
+    if (b_chunk.shape[1] != d or v.shape != (m, cand_c)
+            or c.shape != (m, cand_c) or meta.shape != (m, 3)
+            or tb.shape != (m,)):
+        raise ValueError("p1_fused_chain: hash widths or state shapes differ")
+    if not p1_fused_supported(m, n, d, tile, cand_c) or col_off + n >= 2 ** 31:
+        raise ValueError(
+            f"p1_fused_chain: unsupported shape m={m} n={n} d={d} "
+            f"tile={tile} cand_c={cand_c} col_off={col_off}"
+        )
+    lib = _build.load("p1_fused_chain")
+    dev = a_hash.device
+    ship = torch.empty((m, cand_c), dtype=torch.int32, device=dev)
+    counts = torch.empty(m, dtype=torch.int32, device=dev)
+    tmax = torch.empty(m, dtype=torch.int32, device=dev)
+    bound = torch.empty(m, dtype=torch.float32, device=dev)
+    err = lib.p1_fused_chain(
+        a_hash.data_ptr(), b_chunk.data_ptr(), float(thr_eff), int(col_off),
+        m, n, d, tile, cand_c, v.data_ptr(), c.data_ptr(), meta.data_ptr(),
+        tb.data_ptr(), ship.data_ptr(), counts.data_ptr(), tmax.data_ptr(),
+        bound.data_ptr(), _stream(a_hash),
+    )
+    _build.check("p1_fused_chain", err)
+    LAUNCHES["p1_fused_chain"] += 1
+    return ship, counts, tmax, bound, tmax.max(), state
+
+
+# ------------------------------------------------ kernel 3: triangular p1
+#: Packed future state: per right row, TRI_FUT_C candidate values, their
+#: column ids (int32 bit patterns in f32 slots) and 8 metadata slots
+#: [cnt, tmax, bound, nfin, 0, 0, 0, 0] (pallas_kernels.py:384-411).
+TRI_FUT_C = 60
+_TRI_META_OFF = 2 * TRI_FUT_C
+
+
+def tri_future_init(n_pad: int, device=None) -> torch.Tensor:
+    """Initial packed future state: values -inf, cols 0, meta 0 except the
+    bound slot (-inf)."""
+    f = torch.zeros((n_pad, 128), dtype=torch.float32, device=device)
+    f[:, :TRI_FUT_C] = _NEG
+    f[:, _TRI_META_OFF + 2] = _NEG
+    return f
+
+
+def tri_future_unpack(fpack: torch.Tensor):
+    """(values, cols, meta) views of the packed future state; cols are the
+    int32 view of their f32 slots."""
+    return (
+        fpack[:, :TRI_FUT_C],
+        fpack[:, TRI_FUT_C:_TRI_META_OFF].view(torch.int32),
+        fpack[:, _TRI_META_OFF:],
+    )
+
+
+def p1_tri_supported(seg_rows: int, n_pad: int, d: int, tile: int,
+                     cand_c: int, block_m: int = 512) -> bool:
+    """Shapes the triangular kernel takes: ``p1_fused_supported``'s row
+    side, whole tiles per segment, ``block_m`` sub-blocks made of whole
+    128-row chunks (the kernel's column statistics merge exactly into
+    them), and fewer than 2^24 columns (the packed meta counts in f32)."""
+    return (
+        p1_fused_supported(seg_rows, n_pad, d, tile, cand_c)
+        and seg_rows % tile == 0
+        and tile <= seg_rows <= n_pad
+        and block_m % 128 == 0
+        and tile % block_m == 0
+        and n_pad < (1 << 24)
+    )
+
+
+def p1_tri_fused_plain(a_seg, b_hash, fpack, j0: int, thr_eff: float,
+                       tile: int = 4096, cand_c: int = 64,
+                       block_m: int = 512):
+    """Plain PyTorch version of the triangular self-join phase 1 for one
+    segment (``_p1_tri_body``, pallas_kernels.py:414-623): the segment's
+    rows (global rows from ``j0 * tile``) against right tiles j >= j0, each
+    (tile I, tile j) product once.  Row side: ``_p1_body``'s closed form
+    per (row, tile j), rank-inserted in j order; meta [cnt, tmax, bound,
+    nfin].  Column side (j >= j0 + cpg): the closed form per column over
+    each ``block_m``-row sub-block k, sorted-pair merged over k, then
+    rank-inserted into future block j of ``fpack`` in I order (in place).
+    Returns ``(rv, rc, rmeta, fpack)``."""
+    seg_rows = a_seg.shape[0]
+    n_pad = b_hash.shape[0]
+    dev = a_seg.device
+    nt = n_pad // tile
+    bm = min(block_m, tile)
+    tpb = tile // bm
+    cpg = seg_rows // tile
+    thr = float(thr_eff)
+    a = a_seg.float()
+    rv = torch.full((seg_rows, cand_c), _NEG, dtype=torch.float32, device=dev)
+    rc = torch.zeros((seg_rows, cand_c), dtype=torch.int32, device=dev)
+    rmeta = torch.zeros((seg_rows, 8), dtype=torch.float32, device=dev)
+    rmeta[:, 2] = _NEG
+    fv, fc, fm = tri_future_unpack(fpack)
+    neg = torch.full((tile,), _NEG, dtype=torch.float32, device=dev)
+    zero = torch.zeros(tile, dtype=torch.int32, device=dev)
+    for i in range(cpg):
+        rows = slice(i * tile, (i + 1) * tile)
+        v, c = rv[rows], rc[rows]
+        m_cnt, m_tmax, m_bnd, m_nfin = rmeta[rows, :4].unbind(1)
+        for j in range(j0, nt):
+            s = a[rows] @ b_hash[j * tile:(j + 1) * tile].float().T
+            # row side
+            cnt, s1, vmax, cmax, vmax2 = _tile_top2(s, thr, 1)
+            have1, have2 = cnt >= 1, cnt == 2
+            off = j * tile
+            v, c = _rank_insert2(
+                v, c,
+                torch.where(have1, vmax, _NEG), torch.where(have2, vmax2, _NEG),
+                torch.where(have1, cmax, 0) + off,
+                torch.where(have2, s1 - cmax, 0) + off,
+            )
+            cntf = cnt.float()
+            m_cnt = m_cnt + cntf
+            m_tmax = torch.maximum(m_tmax, cntf)
+            m_bnd = torch.maximum(m_bnd, torch.where(cnt > 2, vmax2, _NEG))
+            m_nfin = m_nfin + (have1.to(torch.int32) + have2.to(torch.int32)).float()
+            if j < j0 + cpg:
+                continue
+            # column side: per block_m-row sub-block k, merged in k order
+            ccnt, cs1, cvmax, ccmax, cvmax2 = _tile_top2(
+                s.view(tpb, bm, tile), thr, 1
+            )
+            a0, a1, ca0, ca1 = neg, neg, zero, zero
+            cm0 = torch.zeros(tile, dtype=torch.float32, device=dev)
+            cm1 = neg
+            for k in range(tpb):
+                ch1, ch2 = ccnt[k] >= 1, ccnt[k] == 2
+                roff = j0 * tile + i * tile + k * bm
+                b0 = torch.where(ch1, cvmax[k], _NEG)
+                b1 = torch.where(ch2, cvmax2[k], _NEG)
+                d0 = torch.where(ch1, ccmax[k], 0) + roff
+                d1 = torch.where(ch2, cs1[k] - ccmax[k], 0) + roff
+                awins = a0 >= b0
+                l0v = torch.where(awins, b0, a0)
+                l0c = torch.where(awins, d0, ca0)
+                wsv = torch.where(awins, a1, b1)
+                wsc = torch.where(awins, ca1, d1)
+                lwins = l0v >= wsv
+                a0, ca0 = torch.where(awins, a0, b0), torch.where(awins, ca0, d0)
+                a1 = torch.where(lwins, l0v, wsv)
+                ca1 = torch.where(lwins, l0c, wsc)
+                cm0 = cm0 + ccnt[k].float()
+                cm1 = torch.maximum(cm1, torch.where(ccnt[k] > 2, cvmax2[k], _NEG))
+            # fold tile I's column results into future block j
+            cols = slice(j * tile, (j + 1) * tile)
+            bnd_tile = torch.maximum(torch.where(cm0 > 2, a1, _NEG), cm1)
+            nv, nc = _rank_insert2(fv[cols], fc[cols], a0, a1, ca0, ca1)
+            f = fm[cols]
+            nm = torch.stack([
+                f[:, 0] + cm0,
+                torch.maximum(f[:, 1], cm0),
+                torch.maximum(f[:, 2], bnd_tile),
+                f[:, 3] + (cm0 >= 1).float() + (cm0 >= 2).float(),
+            ], 1)
+            fv[cols] = nv
+            fc[cols] = nc
+            fm[cols, :4] = nm
+        rv[rows] = v
+        rc[rows] = c
+        rmeta[rows, :4] = torch.stack([m_cnt, m_tmax, m_bnd, m_nfin], 1)
+    return rv, rc, rmeta, fpack
+
+
+def p1_tri_fused(a_seg: torch.Tensor, b_hash: torch.Tensor,
+                 fpack: torch.Tensor, j0: int, thr_eff: float,
+                 tile: int = 4096, cand_c: int = 64, block_m: int = 512):
+    """Triangular self-join phase 1 for one segment (see
+    ``p1_tri_fused_plain``): ``(rv, rc, rmeta, fpack)``, ``fpack`` updated
+    in place.  Segments must run in order (s = 0, 1, ..., j0 = s * cpg):
+    after segment s, the future rows of segment s are final.  Column ids of
+    -inf slots in ``rc`` and in ``fpack`` are unspecified (the kernel skips
+    inserts without a qualified score).  CUDA tensors launch
+    csrc/p1_tri_fused.cu (two kernels, counted as one launch); CPU tensors
+    run the plain version."""
+    if not a_seg.is_cuda:
+        return p1_tri_fused_plain(a_seg, b_hash, fpack, j0, thr_eff, tile,
+                                  cand_c, block_m)
+    seg_rows, d = a_seg.shape
+    n_pad = b_hash.shape[0]
+    _check_tensors("p1_tri_fused", a_seg, b_hash, fpack)
+    if a_seg.dtype != torch.bfloat16 or b_hash.dtype != torch.bfloat16:
+        raise TypeError("p1_tri_fused: a_seg and b_hash must be bfloat16")
+    if fpack.dtype != torch.float32 or fpack.shape != (n_pad, 128):
+        raise ValueError("p1_tri_fused: fpack must be (n_pad, 128) float32")
+    if b_hash.shape[1] != d:
+        raise ValueError("p1_tri_fused: hash widths differ")
+    bm = min(block_m, tile)
+    if (not p1_tri_supported(seg_rows, n_pad, d, tile, cand_c, bm)
+            or not 0 <= j0 <= (n_pad - seg_rows) // tile):
+        raise ValueError(
+            f"p1_tri_fused: unsupported shape seg_rows={seg_rows} "
+            f"n_pad={n_pad} d={d} tile={tile} cand_c={cand_c} "
+            f"block_m={block_m} j0={j0}"
+        )
+    lib = _build.load("p1_tri_fused")
+    dev = a_seg.device
+    rv = torch.empty((seg_rows, cand_c), dtype=torch.float32, device=dev)
+    rc = torch.empty((seg_rows, cand_c), dtype=torch.int32, device=dev)
+    rmeta = torch.empty((seg_rows, 8), dtype=torch.float32, device=dev)
+    # per-(128-row chunk, future column) statistics of the column side
+    n_fut = n_pad - j0 * tile - seg_rows
+    size = (seg_rows // 128) * n_fut
+    st_i = torch.empty((3, size), dtype=torch.int32, device=dev)
+    st_f = torch.empty((2, size), dtype=torch.float32, device=dev)
+    err = lib.p1_tri_fused(
+        a_seg.data_ptr(), b_hash.data_ptr(), float(thr_eff), int(j0),
+        seg_rows, n_pad, d, tile, cand_c, bm, rv.data_ptr(), rc.data_ptr(),
+        rmeta.data_ptr(), fpack.data_ptr(), st_i.data_ptr(), st_f.data_ptr(),
+        _stream(a_seg),
+    )
+    _build.check("p1_tri_fused", err)
+    LAUNCHES["p1_tri_fused"] += 1
+    return rv, rc, rmeta, fpack
 
 
 # ---------------------------------------------------- kernel 2: device hash

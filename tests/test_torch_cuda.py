@@ -5,8 +5,11 @@ so it runs on a machine without it:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-Tolerances: ``p1_fused_closed2`` on dyadic inputs (every f32 sum of the
-bf16 products is exact in any order) must EQUAL its plain version;
+Tolerances: ``p1_fused_closed2``, ``p1_fused_chain`` and ``p1_tri_fused``
+on dyadic inputs (every f32 sum of the bf16 products is exact in any order)
+must EQUAL their plain versions -- the running buffers' column ids where
+their values are finite (the ids of -inf slots are unspecified: the kernels
+skip inserts without a qualified score, the plain versions do not);
 ``device_hash_codes`` must be within 1 bf16 ulp of its plain version (which
 on the card sums by atomics in no fixed order) and bitwise repeatable.
 """
@@ -25,6 +28,9 @@ from string_grouper_tpu_torch.ops import matcher as M
 from string_grouper_tpu_torch.utils.synthetic import synthetic_company_names
 
 pytestmark = pytest.mark.cuda
+
+#: kernels the default match path launches
+DEFAULT_PATH = ("p1_fused_closed2", "device_hash_codes")
 
 
 @pytest.fixture
@@ -67,6 +73,83 @@ def test_p1_kernel_equals_plain(dev, m, n, d, tile, cand_c, thr):
     assert int(got[1].sum()) > 0
 
 
+def _masked_cols(v, c):
+    """Column ids where the value is finite (-inf slots' ids are
+    unspecified)."""
+    return torch.where(v > float("-inf"), c, -1).cpu()
+
+
+@pytest.mark.parametrize("m,chunks,d,tile,cand_c,thr", [
+    (512, [2048], 128, 256, 16, 0.5),                # one chunk
+    (384, [1024, 768, 512], 128, 256, 8, 0.5),       # unequal chunks
+    (256, [8192, 4096], 512, 4096, 64, 0.4),         # main-path tile and width
+])
+def test_chain_kernel_equals_plain_and_one_pass(dev, m, chunks, d, tile,
+                                                cand_c, thr):
+    b = torch.from_numpy(_dyadic(sum(chunks), d, seed=m)).to(torch.bfloat16).to(dev)
+    a = b[:m].contiguous()
+    st_k = K.p1_chain_init(m, cand_c, dev)
+    st_p = K.p1_chain_init(m, cand_c, dev)
+    lo = 0
+    for nc in chunks:
+        before = K.LAUNCHES["p1_fused_chain"]
+        got = K.p1_fused_chain(a, b[lo:lo + nc], thr, lo, st_k, tile, cand_c)
+        assert K.LAUNCHES["p1_fused_chain"] == before + 1
+        want = K.p1_fused_chain_plain(a, b[lo:lo + nc], thr, lo, st_p, tile, cand_c)
+        for name, g, w in zip(("ship", "counts", "tmax", "bound", "max_cnt"),
+                              got[:5], want[:5]):
+            assert torch.equal(g.cpu(), w.cpu()), (lo, name)
+        (vk, ck, mk, tk), (vp, cp, mp, tp) = st_k, st_p
+        assert torch.equal(vk.cpu(), vp.cpu()), (lo, "v")
+        assert torch.equal(_masked_cols(vk, ck), _masked_cols(vp, cp)), (lo, "c")
+        assert torch.equal(mk.cpu(), mp.cpu()), (lo, "meta")
+        assert torch.equal(tk.cpu(), tp.cpu()), (lo, "tb")
+        lo += nc
+    one = K.p1_fused_closed2(a, b, thr, tile=tile, cand_c=cand_c)
+    for name, g, w in zip(("ship", "counts", "tmax", "bound", "max_cnt"),
+                          got[:5], one):
+        assert torch.equal(g.cpu(), w.cpu()), ("one pass", name)
+    assert int(got[1].sum()) > 0 and int(got[2].max()) > 2
+
+
+@pytest.mark.parametrize("n,d,tile,cpg,bm,cand_c,thr", [
+    (2048, 128, 256, 2, 128, 16, 0.4),
+    (1024, 256, 256, 1, 256, 8, 0.3),   # last segment's j0 is the last tile
+    (4096, 512, 512, 2, 512, 64, 0.3),
+])
+def test_tri_kernel_equals_plain(dev, n, d, tile, cpg, bm, cand_c, thr):
+    b = torch.from_numpy(_dyadic(n, d, seed=n + d)).to(torch.bfloat16).to(dev)
+    seg_rows = cpg * tile
+    f_k = K.tri_future_init(n, dev)
+    f_p = K.tri_future_init(n, dev)
+    for s in range(n // seg_rows):
+        a = b[s * seg_rows:(s + 1) * seg_rows]
+        before = K.LAUNCHES["p1_tri_fused"]
+        rv, rc, rm, _ = K.p1_tri_fused(a, b, f_k, s * cpg, thr, tile, cand_c, bm)
+        assert K.LAUNCHES["p1_tri_fused"] == before + 1
+        pv, pc, pm, _ = K.p1_tri_fused_plain(a, b, f_p, s * cpg, thr, tile,
+                                             cand_c, bm)
+        assert torch.equal(rv.cpu(), pv.cpu()), (s, "rv")
+        assert torch.equal(_masked_cols(rv, rc), _masked_cols(pv, pc)), (s, "rc")
+        assert torch.equal(rm.cpu(), pm.cpu()), (s, "rmeta")
+        (kv, kc, km), (qv, qc, qm) = K.tri_future_unpack(f_k), K.tri_future_unpack(f_p)
+        assert torch.equal(kv.cpu(), qv.cpu()), (s, "future values")
+        assert torch.equal(_masked_cols(kv, kc), _masked_cols(qv, qc)), (s, "future cols")
+        assert torch.equal(km.cpu(), qm.cpu()), (s, "future meta")
+    assert float(K.tri_future_unpack(f_k)[2][:, 0].sum()) > 0
+
+
+def test_new_kernels_raise_on_unsupported_cuda_shapes(dev):
+    b = torch.zeros((1024, 128), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError):
+        K.p1_fused_chain(b[:100], b, 0.5, 0, K.p1_chain_init(100, 8, dev), 256, 8)
+    with pytest.raises(ValueError):  # block_m not whole 128-row chunks
+        K.p1_tri_fused(b[:256], b, K.tri_future_init(1024, dev), 0, 0.5, 256, 8, 64)
+    with pytest.raises(TypeError):
+        K.p1_tri_fused(b[:256].float(), b, K.tri_future_init(1024, dev), 0,
+                       0.5, 256, 8, 128)
+
+
 @pytest.mark.parametrize("dim", [512, 4096])  # 4096: > 48 KB of histograms
 def test_device_hash_kernel_within_one_ulp(dev, dim):
     src = TfidfEncoder(StringGrouperConfig()).fit_transform(
@@ -94,8 +177,24 @@ def test_match_strings_card_equals_cpu(dev):
     s = pd.Series(synthetic_company_names(3000, seed=5))
     K.reset_launches()
     card = sgt.match_strings(s)
-    assert all(v > 0 for v in K.LAUNCHES.values()), K.LAUNCHES
+    assert all(K.LAUNCHES[k] > 0 for k in DEFAULT_PATH), K.LAUNCHES
     pd.testing.assert_frame_equal(card, sgt.match_strings(s, device="cpu"))
+
+
+def test_chunked_match_strings_card_equals_default(dev, monkeypatch):
+    """SG_TPU_CHUNKED_P1=1 (size floor lowered; 256-row chunks give 8
+    segments at 20,000 names): chained kernel passes, the default frame."""
+    s = pd.Series(synthetic_company_names(20000, seed=7))
+    knobs = dict(left_chunk=256, right_tile=256)
+    want = sgt.match_strings(s, **knobs)
+    monkeypatch.setattr(M, "_CHUNKED_P1_MIN_ROWS", 1000)
+    for groups in ("2", "3"):
+        monkeypatch.setenv("SG_TPU_CHUNKED_P1", "1")
+        monkeypatch.setenv("SG_TPU_CHUNKED_P1_GROUPS", groups)
+        K.reset_launches()
+        got = sgt.match_strings(s, **knobs)
+        assert K.LAUNCHES["p1_fused_chain"] > 0, K.LAUNCHES
+        pd.testing.assert_frame_equal(got, want)
 
 
 def test_kt2_escalation_rows_card_equals_cpu(dev):
@@ -124,6 +223,6 @@ def test_match_strings_cross_join_card_equals_cpu(dev):
     dupes = pd.Series(synthetic_company_names(2000, seed=12))
     K.reset_launches()
     card = sgt.match_strings(master, dupes, min_similarity=0.7)
-    assert all(v > 0 for v in K.LAUNCHES.values()), K.LAUNCHES
+    assert all(K.LAUNCHES[k] > 0 for k in DEFAULT_PATH), K.LAUNCHES
     cpu = sgt.match_strings(master, dupes, min_similarity=0.7, device="cpu")
     pd.testing.assert_frame_equal(card, cpu)

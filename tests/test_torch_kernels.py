@@ -220,4 +220,9 @@ def test_wrappers_take_plain_version_on_cpu_and_count_nothing():
         torch.from_numpy(src.table_id), torch.from_numpy(src.idf32),
         64, src.base, src.ngram,
     )
-    assert K.LAUNCHES == {"p1_fused_closed2": 0, "device_hash_codes": 0}
+    at, bt = _bf16_torch(a), _bf16_torch(b)
+    K.p1_fused_chain(at, bt, 0.6, 0, K.p1_chain_init(256, 8), tile=256, cand_c=8)
+    K.p1_tri_fused(bt[:256], bt, K.tri_future_init(512), 0, 0.6, tile=256,
+                   cand_c=8, block_m=128)
+    assert K.LAUNCHES == {"p1_fused_closed2": 0, "p1_fused_chain": 0,
+                          "p1_tri_fused": 0, "device_hash_codes": 0}
