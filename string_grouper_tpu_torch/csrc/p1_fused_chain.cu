@@ -3,8 +3,9 @@
 //
 // Replaces the Pallas kernel p1_fused_chain of the JAX package
 // (string_grouper_tpu/ops/pallas_kernels.py:275-358, body _p1_chain_body
-// :183-257).  The scan, what bounds it and its design are in p1_scan.cuh
-// (mode kChain).  It differs from p1_fused_closed2 in three ways:
+// :183-257).  The scan, what bounds it and its design (TMA, wgmma,
+// epilogue from registers) are in p1_scan_sm90.cuh (mode kChain).  It
+// differs from p1_fused_closed2 in three ways:
 // * the running top-C (v, c) is the caller's state, updated in place, and
 //   the per-row counters start from the state's meta [counts, tmax, nfin]
 //   (int32: exact at any size, where the JAX kernel packs them into f32)
@@ -16,7 +17,7 @@
 // rank-insert sequence as in one p1_fused_closed2 pass over the
 // concatenated chunks, so the last pass's outputs are bitwise that pass's.
 
-#include "p1_scan.cuh"
+#include "p1_scan_sm90.cuh"
 
 extern "C" int p1_fused_chain(const void* a, const void* b, float thr,
                               int64_t col_off, int64_t m, int64_t n,
@@ -24,7 +25,7 @@ extern "C" int p1_fused_chain(const void* a, const void* b, float thr,
                               void* v, void* c, void* meta, void* tb,
                               void* ship, void* counts, void* tmax,
                               void* bound, void* stream) {
-  p1::Args p{};
+  p1h::Args p{};
   p.A = static_cast<const __nv_bfloat16*>(a);
   p.B = static_cast<const __nv_bfloat16*>(b);
   p.thr = thr;
@@ -42,5 +43,5 @@ extern "C" int p1_fused_chain(const void* a, const void* b, float thr,
   p.counts = static_cast<int*>(counts);
   p.tmax = static_cast<int*>(tmax);
   p.bound = static_cast<float*>(bound);
-  return p1::launch<p1::kChain>(p, stream);
+  return p1h::launch<p1h::kChain>(p, stream);
 }

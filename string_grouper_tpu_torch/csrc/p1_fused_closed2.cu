@@ -4,19 +4,20 @@
 // Replaces the Pallas kernel p1_fused_closed2 of the JAX package
 // (string_grouper_tpu/ops/pallas_kernels.py:117-179, body _p1_body :47-114,
 // rank insert _rank_insert2 :362-380).  The scan, what bounds it and its
-// design are in p1_scan.cuh (mode kClosed).  At the end: bound =
-// max(tile drop bound, v[C-1] when more than C finite candidates were
-// extracted); ship = column where v > -inf else -1 (the valid entries form
-// a prefix), written over the running column buffer.
+// design (TMA, wgmma, epilogue from registers) are in p1_scan_sm90.cuh
+// (mode kClosed).  At the end: bound = max(tile drop bound, v[C-1] when
+// more than C finite candidates were extracted); ship = column where
+// v > -inf else -1 (the valid entries form a prefix), written over the
+// running column buffer.
 
-#include "p1_scan.cuh"
+#include "p1_scan_sm90.cuh"
 
 extern "C" int p1_fused_closed2(const void* a, const void* b, float thr,
                                 int64_t m, int64_t n, int64_t d, int64_t tile,
                                 int64_t cand_c, void* ship, void* counts,
                                 void* tmax, void* bound, void* vbuf,
                                 void* stream) {
-  p1::Args p{};
+  p1h::Args p{};
   p.A = static_cast<const __nv_bfloat16*>(a);
   p.B = static_cast<const __nv_bfloat16*>(b);
   p.thr = thr;
@@ -30,5 +31,5 @@ extern "C" int p1_fused_closed2(const void* a, const void* b, float thr,
   p.counts = static_cast<int*>(counts);
   p.tmax = static_cast<int*>(tmax);
   p.bound = static_cast<float*>(bound);
-  return p1::launch<p1::kClosed>(p, stream);
+  return p1h::launch<p1h::kClosed>(p, stream);
 }

@@ -1,9 +1,9 @@
-// The fused phase-1 scan for Hopper (sm_90a), shared by three kernels:
-//   p1_fused_closed2.cu  one pass over the whole right corpus   (kClosed)
-//   p1_fused_chain.cu    one pass over a right column chunk,
-//                        resuming from the previous chunk's state (kChain)
-//   p1_tri_fused.cu      the triangular self-join's scan: the row side
-//                        plus per-column statistics of the future tiles (kTri)
+// The first fused phase-1 scan for Hopper (sm_90a), on nvcuda::wmma.  Only
+// p1_tri_fused.cu uses it (kTri: the triangular self-join's scan, the row
+// side plus per-column statistics of the future tiles) until the triangle
+// moves onto the TMA/wgmma scan of p1_scan_sm90.cuh, which
+// p1_fused_closed2.cu and p1_fused_chain.cu already run.  Modes kClosed and
+// kChain below are that scan's earlier form, kept with kTri.
 //
 // For one block of 128 left rows of A (m, d) bf16 against the walked right
 // columns B (n, d) bf16 it computes, per row and per logical tile of `tile`

@@ -115,6 +115,33 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, float]:
     return BUILD_SECONDS
 
 
+def ptxas_report(names: Iterable[str]) -> Dict[str, str]:
+    """``nvcc -Xptxas -v`` for each named source (registers, shared memory
+    and spills of each kernel), compiled to a throwaway cubin, one nvcc per
+    source, all started together.  Returns the ptxas lines per name."""
+    out_dir = BUILD_DIR / "ptxas"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    flags = [f for f in NVCC_FLAGS if f not in ("-shared", "-Xcompiler", "-fPIC")]
+    procs = {
+        n: subprocess.Popen(
+            [_nvcc(), *flags, "-Xptxas", "-v", "-cubin",
+             "-o", str(out_dir / f"{n}.cubin"), str(_CSRC / f"{n}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        )
+        for n in names
+    }
+    report = {}
+    for n, proc in procs.items():
+        log, _ = proc.communicate()
+        text = log.decode(errors="replace")
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc -Xptxas -v failed for csrc/{n}.cu:\n{text}")
+        report[n] = "\n".join(
+            line for line in text.splitlines() if "ptxas" in line
+        )
+    return report
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of kernel ``name``, building it on first use."""
     lib = _LIBS.get(name)
@@ -131,7 +158,17 @@ def load(name: str) -> ctypes.CDLL:
     return _LIBS[name]
 
 
+#: offset of a CUresult from cuTensorMapEncodeTiled in a launch's return
+#: code (csrc/p1_scan_sm90.cuh, kEncodeError)
+ENCODE_ERROR = 10000
+
+
 def check(name: str, err: int) -> None:
     """Raise when a launch returned a CUDA error."""
+    if err >= ENCODE_ERROR:
+        raise RuntimeError(
+            f"CUDA kernel {name}: TMA descriptor not built (CUresult "
+            f"{err - ENCODE_ERROR}; {ENCODE_ERROR} = no driver entry point)"
+        )
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError_t {err}")

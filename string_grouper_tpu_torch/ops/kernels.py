@@ -16,7 +16,9 @@ main path went through the kernels.
 * ``p1_tri_fused`` (csrc/p1_tri_fused.cu) replaces the Pallas kernel of the
   same name (pallas_kernels.py:626-726): the triangular self-join, each
   tile pair multiplied once.
-  The three share their scan in csrc/p1_scan.cuh.
+  ``p1_fused_closed2`` and ``p1_fused_chain`` share the TMA/wgmma scan of
+  csrc/p1_scan_sm90.cuh; ``p1_tri_fused`` runs the wmma scan of
+  csrc/p1_scan.cuh.
 * ``device_hash_codes`` (csrc/device_hash_codes.cu) replaces the XLA
   program ``_device_hash_codes`` (string_grouper_tpu/ops/matcher.py:398-464).
 """
@@ -59,8 +61,9 @@ def p1_fused_supported(m: int, n_pad: int, d: int, tile: int,
                        cand_c: int) -> bool:
     """Shapes the fused kernel handles (the torch-op scan covers the rest):
     the JAX package's rule (pallas_kernels.py:729-743) plus ``d <= 512``,
-    because the CUDA kernel keeps its 128 left rows of width d in shared
-    memory (128 x 520 bf16 = 133 KB of the block's 227 KB)."""
+    because the CUDA kernels keep their 128 left rows of width d in shared
+    memory (128 x 512 bf16 = 128 KB of the block's 227 KB, beside the ring
+    of B stages)."""
     return (
         d % 128 == 0
         and d <= 512

@@ -60,6 +60,8 @@ def _dyadic(n, d, seed=0, nnz=20, step=2.0 ** -7):
     (300, 8192, 512, 4096, 64, 0.5),    # ragged last row block
     (512, 2048, 256, 512, 256, 0.3),    # widest top-C
     (256, 4096, 384, 1024, 24, 0.4),    # C not a multiple of 32
+    (384, 4096, 512, 256, 256, 0.3),    # d 512, tile 256: 2 sub-blocks a tile
+    (300, 2048, 512, 256, 8, 0.5),      # ragged, d 512, tile 256, smallest C
 ])
 def test_p1_kernel_equals_plain(dev, m, n, d, tile, cand_c, thr):
     b = torch.from_numpy(_dyadic(n, d, seed=m)).to(torch.bfloat16).to(dev)
@@ -73,6 +75,23 @@ def test_p1_kernel_equals_plain(dev, m, n, d, tile, cand_c, thr):
     assert int(got[1].sum()) > 0
 
 
+def test_p1_kernel_ties_take_first_column(dev):
+    """Many duplicate right rows: equal maxima at columns held by different
+    lanes, quads and warps; the argmax must be the first (jnp.argmax), and
+    tiles with exactly 2 qualified columns take the second by index sum."""
+    rng = np.random.default_rng(4)
+    distinct = _dyadic(512, 256, seed=9)
+    b_np = distinct[rng.integers(0, 512, size=4096)]
+    b = torch.from_numpy(b_np).to(torch.bfloat16).to(dev)
+    a = torch.from_numpy(distinct[:256]).to(torch.bfloat16).to(dev)
+    got = K.p1_fused_closed2(a, b, 0.95, tile=256, cand_c=16)
+    want = K.p1_fused_closed2_plain(a, b, 0.95, tile=256, cand_c=16)
+    for name, g, w in zip(("ship", "counts", "tmax", "bound", "max_cnt"), got, want):
+        assert torch.equal(g.cpu(), w.cpu()), name
+    tmax = got[2].cpu()
+    assert int((tmax == 2).sum()) > 0 and int((tmax > 2).sum()) > 0
+
+
 def _masked_cols(v, c):
     """Column ids where the value is finite (-inf slots' ids are
     unspecified)."""
@@ -83,6 +102,7 @@ def _masked_cols(v, c):
     (512, [2048], 128, 256, 16, 0.5),                # one chunk
     (384, [1024, 768, 512], 128, 256, 8, 0.5),       # unequal chunks
     (256, [8192, 4096], 512, 4096, 64, 0.4),         # main-path tile and width
+    (300, [768, 256, 1280], 512, 256, 16, 0.4),      # ragged; chunks of 1-5 tiles
 ])
 def test_chain_kernel_equals_plain_and_one_pass(dev, m, chunks, d, tile,
                                                 cand_c, thr):

@@ -226,3 +226,19 @@ def test_wrappers_take_plain_version_on_cpu_and_count_nothing():
                    cand_c=8, block_m=128)
     assert K.LAUNCHES == {"p1_fused_closed2": 0, "p1_fused_chain": 0,
                           "p1_tri_fused": 0, "device_hash_codes": 0}
+
+
+@pytest.mark.parametrize("err,words", [
+    (0, None),
+    (1, "cudaError_t 1"),                    # a refused launch
+    (10000, "CUresult 0"),                   # no driver entry point
+    (10001, "CUresult 1"),                   # cuTensorMapEncodeTiled refused
+])
+def test_build_check_names_the_failure(err, words):
+    from string_grouper_tpu_torch.ops import _build
+
+    if words is None:
+        _build.check("p1_fused_closed2", err)
+        return
+    with pytest.raises(RuntimeError, match=words):
+        _build.check("p1_fused_closed2", err)
