@@ -10,8 +10,9 @@ Phases (any failure raises and the script exits non-zero without a result):
 1. Device: the card's name and power limit; build the CUDA kernels from
    string_grouper_tpu_torch/csrc/ (one nvcc per source, all started
    together) and print the build time, and beside it ``nvcc -Xptxas -v``'s
-   registers, shared memory and spills for the two kernels on the
-   TMA/wgmma scan.
+   registers, shared memory and spills for the three kernels on the
+   TMA/wgmma scan (no stack, no spills and no serialized wgmma, or the
+   phase fails).
 2. Kernel ``p1_fused_closed2`` against its plain PyTorch version on the
    card, on hash rows of the synthetic 663,000-name corpus (A 32,768 rows,
    B 131,072 rows, d 512, tile 4096, C 64, the default threshold): counts,
@@ -23,7 +24,9 @@ Phases (any failure raises and the script exits non-zero without a result):
    and 512, C = 8 and 256; the chained passes bitwise one closed pass.
 3. Kernel ``device_hash_codes`` against its plain version on the whole
    663,000-row payload: every element within 1 bf16 ulp; repeated launches
-   bitwise identical.
+   bitwise identical; and against the plain version run on the CPU over the
+   first 20,000 rows (both sum each bucket in window order: the count of
+   elements that differ is printed, 1 bf16 ulp allowed).
 3b. Kernel ``p1_fused_chain`` at the chunked pipeline's shape (A 73,728
    rows, two chunks of 294,912 rows): each pass against its plain version
    (the rule of phase 2), and the chained kernel passes BITWISE one
@@ -37,7 +40,13 @@ Phases (any failure raises and the script exits non-zero without a result):
    segments through ``p1_tri_fused``) against the square scan (all through
    ``p1_fused_closed2``), in the order square, tri, tri, square; per-row
    qualified counts of the two equal, except rows with a score within TOL
-   of the threshold (the two scans sum in other orders; counted, printed).
+   of the threshold (the triangle counts a row's earlier columns from the
+   transposed products; counted, printed).
+3e. Kernel ``p1_tri_fused`` against its plain version over the rest of its
+   domain at n = 16,384 (segments of one 4096-row tile, all in order, the
+   last with no future columns): d = 128, 384 (the hash's first d columns,
+   renormalised) and 512, block_m 128 and 4096, C = 8 and 256; row sides
+   after every segment and the future state at the end, by phase 2's rule.
 4. ``match_strings`` on the card frame-equal to ``device="cpu"`` at 20,000
    names, and equal to a brute-force fp64 cosine oracle at 5,000 names.
 5. The full self-join at 663,000 names on the card: wall time, phases,
@@ -51,6 +60,7 @@ and prints no result.
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -75,8 +85,11 @@ TOL = 1e-5
 # p1_fused_closed2).
 DEFAULT_PATH = ("p1_fused_closed2", "device_hash_codes")
 CHUNKED_PATH = ("p1_fused_chain", "device_hash_codes")
-# The two kernels on the TMA/wgmma scan (csrc/p1_scan_sm90.cuh).
-SCAN_KERNELS = ("p1_fused_closed2", "p1_fused_chain")
+# The three kernels on the TMA/wgmma scan (csrc/p1_scan_sm90.cuh).
+SCAN_KERNELS = ("p1_fused_closed2", "p1_fused_chain", "p1_tri_fused")
+# Rows of the 663k payload that phase 3 also hashes with the plain version
+# on the CPU.
+N_HASH_CPU = 20_000
 # Published H100 SXM peaks (dense bf16 tensor-core rate, HBM3 bandwidth).
 PEAK_BF16 = 989e12
 PEAK_BYTES = 3.35e12
@@ -203,6 +216,14 @@ def check_hash(K, M, src, dev):
     max_err = float((h_k.float() - h_p.float()).abs().max())
     log(f"device_hash_codes vs plain: n={n} width={width} dim=512: max 1 bf16 "
         f"ulp; {n_diff} of {h_k.numel()} elements differ (max |diff| {max_err})")
+    r = min(N_HASH_CPU, n)
+    h_c = K.device_hash_codes_plain(codes[:r].cpu(), inv[:r].cpu(), table.cpu(),
+                                    idf.cpu(), 512, src.base, src.ngram, width=width)
+    ulp = (h_k[:r].cpu().view(torch.int16).int() - h_c.view(torch.int16).int()).abs()
+    assert int(ulp.max()) <= 1, f"device_hash_codes vs CPU: {int(ulp.max())} bf16 ulp"
+    log(f"device_hash_codes vs plain on the CPU: first {r} rows: "
+        f"{int((ulp > 0).sum())} of {h_c.numel()} elements differ (1 bf16 ulp "
+        f"allowed; both sum each bucket in window order)")
 
     # library yardstick: the scatter core alone, one index_add_ over the
     # precomputed (row * dim + bucket, idf) window pairs of the whole corpus
@@ -419,6 +440,43 @@ def check_tri(K, h, thr, n=131_072, seg_rows=32_768):
                 bound_ms=bound_ms, bound_by="operations", library_ms=lib_ms)
 
 
+# ----------------------------------------------------------------- phase 3e
+def check_tri_domain(K, h, thr, n=16_384, tile=4_096):
+    """``p1_tri_fused`` against its plain version over the rest of the
+    domain ``p1_tri_supported`` admits: d = 128, 384 (the hash's first d
+    columns, renormalised) and 512, block_m 128 and = tile, C = 8 and 256;
+    every segment of one tile in order (the last has no future columns),
+    row sides after each segment and the future state at the end."""
+    n_cases, n_border, max_err = 0, 0, 0.0
+    for d in (128, 384, 512):
+        hd = h[:n, :d].float()
+        hd = (hd / hd.norm(dim=1, keepdim=True).clamp_min(1e-12)).to(torch.bfloat16)
+        for bm in (128, tile):
+            for cand_c in (8, 256):
+                what = f"d={d} block_m={bm} C={cand_c}"
+                f_k = K.tri_future_init(n, hd.device)
+                f_p = K.tri_future_init(n, hd.device)
+                for s in range(n // tile):
+                    a = hd[s * tile:(s + 1) * tile]
+                    got = K.p1_tri_fused(a, hd, f_k, s, thr, tile, cand_c, bm)
+                    want = K.p1_tri_fused_plain(a, hd, f_p, s, thr, tile, cand_c, bm)
+                    err, nb = compare_scan(f"p1_tri_fused {what} segment {s}",
+                                           _tri_rows(*got[:3]), _tri_rows(*want[:3]),
+                                           a, hd, thr)
+                    max_err, n_border = max(max_err, err), n_border + nb
+                err, nb = compare_scan(f"p1_tri_fused {what} future state",
+                                       _tri_rows(*K.tri_future_unpack(f_k)),
+                                       _tri_rows(*K.tri_future_unpack(f_p)), hd, hd, thr)
+                max_err, n_border = max(max_err, err), n_border + nb
+                assert float(K.tri_future_unpack(f_k)[2][:, 0].sum()) > 0, \
+                    f"{what}: nothing qualified"
+                n_cases += 1
+    log(f"p1_tri_fused vs plain over the domain: {n_cases} cases (d 128/384/512, "
+        f"block_m 128/{tile}, C 8/256; n={n}, {n // tile} segments each): equal "
+        f"but {n_border} borderline rows, max |diff| {max_err}")
+    return max_err
+
+
 # ----------------------------------------------------------------- phase 3d
 def tri_square_ab(K, M, h, src, thr, seg_rows=73_728, n_pad=589_824):
     """Full triangular scan against the full square scan at the 663k scan's
@@ -463,9 +521,10 @@ def tri_square_ab(K, M, h, src, thr, seg_rows=73_728, n_pad=589_824):
     sq2, _ = timed(square)
     sq_counts = torch.cat(counts).float()
     tri_counts = torch.cat(rm)[:, 0] + K.tri_future_unpack(f)[2][:, 0]
-    # The square runs the wgmma scan, the triangle the wmma one: f32 sums in
-    # other orders, so a row may count a score within TOL of the threshold
-    # on one side only.  Any other difference fails.
+    # Both run the TMA/wgmma scan, but the triangle counts a row's earlier
+    # columns from the transposed products (the row as a right column), an
+    # f32 sum that may round otherwise: a row may count a score within TOL
+    # of the threshold on one side only.  Any other difference fails.
     rows = torch.nonzero(sq_counts != tri_counts).flatten().tolist()
     assert len(rows) <= 2000, f"tri/square: {len(rows)} rows count differently"
     if rows:
@@ -548,6 +607,9 @@ def main() -> int:
         f"{len(secs)} kernels in parallel ({secs}), with the ptxas report")
     for name, text in report.items():
         log(f"nvcc -Xptxas -v, csrc/{name}.cu:\n{text}")
+        assert "serialized" not in text and not re.search(
+            r"[1-9]\d* bytes (spill|stack|cumulative stack)", text), \
+            f"csrc/{name}.cu: stack, spills or serialized wgmma"
 
     # ---- phases 2-3: kernels against their plain versions -----------------
     t0 = time.perf_counter()
@@ -569,6 +631,7 @@ def main() -> int:
     res_chain["max_abs_err"] = max(res_chain["max_abs_err"], dom_err)
     torch.cuda.empty_cache()
     res_tri = check_tri(K, h, thr)
+    res_tri["max_abs_err"] = max(res_tri["max_abs_err"], check_tri_domain(K, h, thr))
     torch.cuda.empty_cache()
     tri_launches = tri_square_ab(K, M, h, ell_full.device_src, thr)
     del h, ell_full

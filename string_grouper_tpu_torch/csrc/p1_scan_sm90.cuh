@@ -1,11 +1,16 @@
 // The fused phase-1 scan for Hopper (sm_90a), built on TMA, mbarriers and
-// wgmma, shared by two kernels:
+// wgmma, shared by three kernels:
 //   p1_fused_closed2.cu  one pass over the whole right corpus   (kClosed)
 //   p1_fused_chain.cu    one pass over a right column chunk,
 //                        resuming from the previous chunk's state (kChain)
-// It replaces the Pallas kernels p1_fused_closed2 and p1_fused_chain of the
-// JAX package (string_grouper_tpu/ops/pallas_kernels.py:117-179 and
-// :275-358, bodies _p1_body :47-114 and _p1_chain_body :183-257).
+//   p1_tri_fused.cu      one segment of the triangular self-join: the row
+//                        side from the segment's first column on, plus
+//                        per-column statistics of the future columns (kTri)
+// It replaces the Pallas kernels p1_fused_closed2, p1_fused_chain and the
+// scan of p1_tri_fused of the JAX package
+// (string_grouper_tpu/ops/pallas_kernels.py:117-179, :275-358 and
+// :631-726; bodies _p1_body :47-114, _p1_chain_body :183-257 and
+// _p1_tri_body :414-623).
 //
 // For one block of 128 left rows of A (m, d) bf16 against the walked right
 // columns B (n, d) bf16 it computes, per row and per logical tile of `tile`
@@ -31,10 +36,11 @@
 // * 3 warpgroups.  Warpgroup 2 is the producer: one thread issues TMA
 //   loads.  A's 128 x d rows arrive once, as d/64 boxes of 128 rows x 64 k
 //   in the 128-byte swizzled K-major layout that wgmma reads (TMA fills rows
-//   past m with zeros); B streams through a ring of 6-8 stages (128 columns
-//   x 64 k, 16 KB each) with full/empty mbarriers, and the producer keeps
-//   them in flight across sub-block and tile boundaries.  setmaxnreg gives
-//   the producer 40 registers and the consumers 232.
+//   past m with zeros); B streams through a ring of 5-8 stages (128 columns
+//   x 64 k, 16 KB each; as many as fit, at most 8) with full/empty
+//   mbarriers, and the producer keeps them in flight across sub-block and
+//   tile boundaries.  setmaxnreg gives the producer 40 registers and the
+//   consumers 232.
 // * Warpgroups 0 and 1 are the consumers, 64 rows each: wgmma m64n128k16
 //   from shared memory, f32 accumulators in registers, one commit group per
 //   stage, a stage released as soon as the wgmma that read it completes.
@@ -53,8 +59,29 @@
 //   (counts, tmax, nfin, tb live in registers for the whole walk).  The
 //   warp then rank-inserts, row after row, the rows with a qualified
 //   column into their running top-C in global memory (v + c, L2-resident),
-//   warp-wide as before.  Tiles with no qualified column skip the insert,
-//   so the column id of a -inf slot is unspecified.
+//   warp-wide.  Tiles with no qualified column skip the insert, so the
+//   column id of a -inf slot is unspecified.
+// * kTri's column side, from the same registers: for walked columns from
+//   `fut_start` on, every qualified score also folds into its column's
+//   statistics over the block's 128 rows, kept in shared memory: count and
+//   row sum by integer atomic adds, the maximum and its first row by one
+//   64-bit atomic max of (order-preserving bits of the score, ~row), and
+//   the second maximum by an atomic max of whichever key loses (on arrival,
+//   or when a larger key displaces it).  Every step is commutative, so the
+//   statistics are the same bits in any order of arrival.  Those sub-blocks
+//   run their own instantiation of the epilogue (sub_block<true>); the
+//   others run kClosed's.  A score below thr costs nothing there: the row
+//   side's per-row max already skips it.  The last of the 8 consumer warps
+//   to finish such a sub-block (a shared counter) writes the 128 columns'
+//   statistics to global memory (count densely, the rest where count > 0)
+//   and clears them; no warp waits for another.  col_bufs buffers, enough
+//   that no warp can reach a buffer's next sub-block before its flush.
+//   What this costs: a qualified score's atomics are shared-memory round
+//   trips on the block's critical path (the 64-bit max is a CAS loop), and
+//   every consumer warp waits for its warpgroup's slowest at the next
+//   wgmma; the flush reads shared memory every future sub-block.  The
+//   statistics and counters take 2.5-12.5 KB of shared memory, one ring
+//   stage at d = 512.
 // * TMA descriptors are built on the host per launch (the pointers change
 //   with every segment and chunk) and passed as __grid_constant__
 //   parameters.  cuTensorMapEncodeTiled is a driver-API function; it is
@@ -64,9 +91,10 @@
 //   kEncodeError + its CUresult.
 //
 // Left for later: wave quantization (one block of 128 rows per SM: 576
-// blocks on 132 SMs at the 663k segment, 4.36 waves); thread-block clusters
-// with TMA multicast of B to two SMs, which halves B's L2 traffic -- the
-// next lever if the scan is bound by L2 reads rather than the tensor cores.
+// blocks on 132 SMs at the 663k segment, 4.36 waves); thread-block
+// clusters with TMA multicast of B to two SMs, which halves B's L2 traffic
+// -- the next lever if the scan is bound by L2 reads rather than the
+// tensor cores.
 
 #pragma once
 
@@ -87,7 +115,7 @@ constexpr int SMEM_LIMIT = 232448;  // a block's shared memory on the H100
 constexpr int kEncodeError = 10000;
 constexpr float NEG = -__builtin_huge_valf();
 
-enum Mode { kClosed = 0, kChain = 1 };
+enum Mode { kClosed = 0, kChain = 1, kTri = 2 };
 
 struct Args {
   const __nv_bfloat16* A;  // (m, d) left rows
@@ -95,16 +123,37 @@ struct Args {
   float thr;
   int m, n, d, tile, cand_c;
   int stages;     // B ring depth (set by launch)
+  int col_bufs;   // kTri: column-statistics buffers (set by launch)
   int col_off;    // global column id of B's first row
   float* v;       // (m, cand_c) running top-C values
   int* c;         // (m, cand_c) running top-C columns
   int* ship;      // kChain: (m, cand_c) output (kClosed masks c in place)
-  int* counts;    // (m,) outputs
+  int* counts;    // kClosed, kChain: (m,) outputs
   int* tmax;
   float* bound;
   int* meta;      // kChain state (m, 3): [counts, tmax, nfin]
   float* tb;      // kChain state (m,): per-tile drop bound
+  float* rmeta;   // kTri (m, 8): [cnt, tmax, bound, nfin, 0, 0, 0, 0]
+  int fut_start;  // kTri: first walked column of the column side
+  int64_t n_fut;  // kTri: columns of the column side (statistics stride)
+  int* st_cnt;    // kTri statistics, (m / 128, n_fut) each: count,
+  int* st_s1;     //   sum of block-local rows, first row of the maximum,
+  int* st_row;    //   maximum, second maximum
+  float* st_v;
+  float* st_v2;
 };
+
+// kTri: one sub-block's column statistics over the block's 128 rows.
+struct ColStage {
+  int cnt[BN];
+  int s1[BN];
+  uint32_t v2[BN];             // order bits of the second maximum (0: none)
+  unsigned long long key[BN];  // order bits of the maximum << 32 | ~row
+};
+// shared bytes of kTri's column side: the buffers, then a counter each
+__host__ __device__ constexpr int col_bytes(int bufs) {
+  return bufs * static_cast<int>(sizeof(ColStage) + 8);
+}
 
 // ---- PTX wrappers -----------------------------------------------------------
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -287,10 +336,60 @@ __device__ __forceinline__ void open_tile(Rows& r) {
   }
 }
 
+// ---- the column side (kTri) ---------------------------------------------------
+// Order-preserving bits of a float (-0 taken as +0, so ties match ==) and
+// back.  order_bits(-inf) = 0x007fffff, above the buffers' cleared 0.
+__device__ __forceinline__ uint32_t order_bits(float x) {
+  const uint32_t u = __float_as_uint(x + 0.f);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+__device__ __forceinline__ float order_value(uint32_t o) {
+  return __uint_as_float((o & 0x80000000u) ? (o & 0x7fffffffu) : ~o);
+}
+
+// Fold the qualified score x at (block-local row, sub-block column) into
+// the column's statistics.  The key of the maximum is (order bits, ~row),
+// so the smaller row wins ties; every key that is not the final maximum
+// reaches v2 exactly once: on arrival when a larger key is there, or from
+// the atomic that displaces it.
+__device__ __forceinline__ void col_hit(ColStage* cs, int col, int row, float x) {
+  const uint32_t o = order_bits(x);
+  const unsigned long long k =
+      (static_cast<unsigned long long>(o) << 32) | static_cast<uint32_t>(~row);
+  atomicAdd(&cs->cnt[col], 1);
+  atomicAdd(&cs->s1[col], row);
+  const unsigned long long old = atomicMax(&cs->key[col], k);
+  atomicMax(&cs->v2[col], old > k ? o : static_cast<uint32_t>(old >> 32));
+}
+
+// Write column c of the sub-block's statistics to global memory at idx
+// (count always, the rest where count > 0) and clear what was set.
+__device__ __forceinline__ void col_flush(ColStage* cs, const Args& p,
+                                          int64_t idx, int c) {
+  const int cnt = cs->cnt[c];
+  p.st_cnt[idx] = cnt;
+  if (cnt > 0) {
+    const unsigned long long k = cs->key[c];
+    const uint32_t v2 = cs->v2[c];
+    p.st_s1[idx] = cs->s1[c];
+    p.st_row[idx] = static_cast<int>(~static_cast<uint32_t>(k));
+    p.st_v[idx] = order_value(static_cast<uint32_t>(k >> 32));
+    p.st_v2[idx] = v2 ? order_value(v2) : NEG;
+    cs->cnt[c] = 0;
+    cs->s1[c] = 0;
+    cs->v2[c] = 0;
+    cs->key[c] = 0;
+  }
+}
+
 // Fold one sub-block's scores (accumulator layout) into the open tile:
-// column tcol0 + 8j + 2q + e sits in acc[4j + 2h + e].
+// column tcol0 + 8j + 2q + e sits in acc[4j + 2h + e].  COL (kTri,
+// future columns): each qualified score also goes to its column's
+// statistics in `cs`; `rloc` is the block-local row of h = 0.
+template <bool COL>
 __device__ __forceinline__ void sub_block(Rows& r, const float (&acc)[64],
-                                          float thr, int tcol0, int q) {
+                                          float thr, int tcol0, int q,
+                                          ColStage* cs, int rloc) {
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     float mx = acc[2 * h];
@@ -314,6 +413,7 @@ __device__ __forceinline__ void sub_block(Rows& r, const float (&acc)[64],
             } else {
               r.t_vm2[h] = fmaxf(r.t_vm2[h], x);
             }
+            if (COL) col_hit(cs, 8 * j + 2 * q + e, rloc + 8 * h, x);
           }
         }
       }
@@ -363,15 +463,47 @@ __device__ __forceinline__ void close_tile(Rows& r, const Args& p, int row_lo,
   open_tile(r);
 }
 
-// The epilogue of sub-block sb, from its accumulator.
+// The epilogue of sub-block sb, from its accumulator; `rloc` is this
+// lane's block-local row of h = 0.  kTri, future columns: the column side
+// into buffer sb % col_bufs; the last of the 8 consumer warps to finish
+// the sub-block (a counter per buffer) flushes it, so no warp waits for
+// another.  A warp cannot reach the buffer's next sub-block before that
+// flush: it would need a B stage that the producer loads only after every
+// warp has released a stage issued after its epilogue of sb, and launch
+// gives col_bufs * (d / 64) > stages.
+template <int MODE>
 __device__ __forceinline__ void epilogue(Rows& r, const float (&acc)[64],
-                                         const Args& p, int sb, int row_lo,
-                                         int lane) {
+                                         const Args& p, int sb, int rloc,
+                                         int lane, ColStage* cst) {
   const int col0 = sb * BN;
   const int tcol0 = col0 % p.tile;
-  sub_block(r, acc, p.thr, tcol0, lane & 3);
+  const bool col_side = MODE == kTri && col0 >= p.fut_start;
+  const int buf = col_side ? sb % p.col_bufs : 0;
+  ColStage* cs = col_side ? cst + buf : nullptr;
+  if (col_side)
+    sub_block<true>(r, acc, p.thr, tcol0, lane & 3, cs, rloc);
+  else
+    sub_block<false>(r, acc, p.thr, tcol0, lane & 3, nullptr, rloc);
   if ((col0 + BN) % p.tile == 0)
-    close_tile(r, p, row_lo, p.col_off + col0 - tcol0, lane);
+    close_tile(r, p, blockIdx.x * BM + rloc, p.col_off + col0 - tcol0, lane);
+  if (col_side) {
+    int* done = reinterpret_cast<int*>(cst + p.col_bufs) + 2 * buf;
+    __syncwarp();  // the warp's atomics before lane 0's count
+    int last = 0;
+    if (lane == 0) {
+      __threadfence_block();
+      last = atomicAdd(done, 1) == 7;
+      __threadfence_block();
+    }
+    if (__shfl_sync(0xffffffffu, last, 0)) {
+      __syncwarp();
+      const int64_t idx =
+          static_cast<int64_t>(blockIdx.x) * p.n_fut + (col0 - p.fut_start);
+      for (int c = lane; c < BN; c += 32) col_flush(cs, p, idx + c, c);
+      if (lane == 0) *done = 0;
+      __syncwarp();  // the clears before lane 0's next empty-barrier arrive
+    }
+  }
 }
 
 // ---- the kernel -----------------------------------------------------------------
@@ -428,10 +560,17 @@ __global__ void __launch_bounds__(NT, 1)
   const uint32_t b_s = a_s + nkb * BOX;
   const uint32_t bars = b_s + S * BOX;  // full[S], empty[S], a_full
   const uint32_t a_full = bars + 16 * S;
+  // kTri: the column-statistics buffers, after the barriers' 256 bytes
+  ColStage* cst =
+      reinterpret_cast<ColStage*>(smem_raw + (bars + 256 - smem_u32(smem_raw)));
   const int tid = threadIdx.x;
   const int row0 = blockIdx.x * BM;
   const int n_sub = p.n / BN;
 
+  if (MODE == kTri) {
+    for (int i = tid; i < col_bytes(p.col_bufs) / 4; i += NT)
+      reinterpret_cast<uint32_t*>(cst)[i] = 0;
+  }
   if (tid == 0) {
     for (int s = 0; s < S; ++s) {
       mbar_init(bars + 8 * s, 1);            // producer's expect_tx
@@ -473,9 +612,10 @@ __global__ void __launch_bounds__(NT, 1)
     const int lane = tid & 31;
     const int wrow = row0 + wg * 64 + ((tid & 127) >> 5) * 16;  // warp's row 0
     const int row_lo = wrow + (lane >> 2);
+    const int rloc = row_lo - row0;
     const int cand_c = p.cand_c;
 
-    if (MODE == kClosed) {
+    if (MODE != kChain) {
       for (int i = lane; i < 16 * cand_c; i += 32) {
         if (wrow + i / cand_c < p.m) {
           p.v[static_cast<int64_t>(wrow) * cand_c + i] = NEG;
@@ -514,21 +654,21 @@ __global__ void __launch_bounds__(NT, 1)
     for (int sb = 0;; sb += 2) {
       mma_stage(acc1, ring, a_wg, 0, lane);  // sub-block sb is complete
       fence_regs(acc0);
-      epilogue(r, acc0, p, sb, row_lo, lane);
+      epilogue<MODE>(r, acc0, p, sb, rloc, lane, cst);
       for (int kb = 1; kb < nkb; ++kb) mma_stage(acc1, ring, a_wg, kb, lane);
       if (sb + 2 == n_sub) break;
       mma_stage(acc0, ring, a_wg, 0, lane);  // sub-block sb + 1 is complete
       fence_regs(acc1);
-      epilogue(r, acc1, p, sb + 1, row_lo, lane);
+      epilogue<MODE>(r, acc1, p, sb + 1, rloc, lane, cst);
       for (int kb = 1; kb < nkb; ++kb) mma_stage(acc0, ring, a_wg, kb, lane);
     }
     wgmma_wait<0>();
     if (lane == 0) mbar_arrive(ring.empty(ring.prev));
     fence_regs(acc1);
-    epilogue(r, acc1, p, n_sub - 1, row_lo, lane);
+    epilogue<MODE>(r, acc1, p, n_sub - 1, rloc, lane, cst);
 
-    // ---- outputs: the warp's 16 rows ------------------------------------
-    for (int i = lane; i < 16 * cand_c; i += 32) {
+    // ---- outputs: the warp's 16 rows (kTri keeps v and c as they are) ---
+    for (int i = lane; MODE != kTri && i < 16 * cand_c; i += 32) {
       if (wrow + i / cand_c >= p.m) break;
       const int64_t g = static_cast<int64_t>(wrow) * cand_c + i;
       if (MODE == kClosed) {
@@ -542,6 +682,15 @@ __global__ void __launch_bounds__(NT, 1)
       for (int h = 0; h < 2; ++h) {
         const int gr = row_lo + 8 * h;
         if (gr >= p.m) continue;
+        if (MODE == kTri) {
+          float* rm = p.rmeta + 8 * static_cast<int64_t>(gr);
+          rm[0] = static_cast<float>(r.counts[h]);
+          rm[1] = static_cast<float>(r.tmax[h]);
+          rm[2] = r.tb[h];
+          rm[3] = static_cast<float>(r.nfin[h]);
+          for (int k = 4; k < 8; ++k) rm[k] = 0.f;
+          continue;
+        }
         const int64_t g = static_cast<int64_t>(gr) * cand_c;
         const float trunc = r.nfin[h] > cand_c ? p.v[g + cand_c - 1] : NEG;
         p.counts[gr] = r.counts[h];
@@ -607,10 +756,20 @@ inline int launch(Args p, void* stream) {
   int e = make_map(&tm_a, p.A, p.m, p.d);
   if (e == 0) e = make_map(&tm_b, p.B, p.n, p.d);
   if (e != 0) return e;
-  const int a_bytes = (p.d / BK) * BOX;
+  const int nkb = p.d / BK;
+  const int a_bytes = nkb * BOX;
   const int room = SMEM_LIMIT - 1024 - 256 - a_bytes;  // alignment, barriers
   p.stages = room / BOX < MAX_STAGES ? room / BOX : MAX_STAGES;
-  const size_t smem = 1024 + a_bytes + static_cast<size_t>(p.stages) * BOX + 256;
+  p.col_bufs = 0;
+  if (MODE == kTri) {
+    // col_bufs * nkb > stages (see epilogue), with as deep a ring as fits
+    for (;; --p.stages) {
+      p.col_bufs = p.stages / nkb + 1;
+      if (p.stages * BOX + col_bytes(p.col_bufs) <= room) break;
+    }
+  }
+  const size_t smem = 1024 + a_bytes + static_cast<size_t>(p.stages) * BOX + 256 +
+                      col_bytes(p.col_bufs);
   cudaError_t err = cudaFuncSetAttribute(
       scan_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));

@@ -1,8 +1,8 @@
 // Triangular self-join phase 1 for Hopper (sm_90a), one left segment.
 //
 // Replaces the Pallas kernel p1_tri_fused of the JAX package
-// (string_grouper_tpu/ops/pallas_kernels.py:626-726, body _p1_tri_body
-// :414-623, packed future state :384-411).  The segment's rows (global rows
+// (string_grouper_tpu/ops/pallas_kernels.py:631-726, body _p1_tri_body
+// :414-623, packed future state :393-411).  The segment's rows (global rows
 // from j0 * tile, cpg tiles) meet every right tile j >= j0 once; each
 // product feeds both sides:
 // * row side: the segment rows' running top-C over tiles j >= j0, in j
@@ -17,13 +17,15 @@
 // What bounds it on the H100: the tensor cores, as for p1_fused_closed2 --
 // (seg_rows x (n_pad - j0*tile) x d) products, about half the square
 // scan's over all segments -- plus the column statistics, written once and
-// read once (20 bytes per 128 rows of a future column).
+// read once (20 bytes per 128 rows of a future column, 4 where no score
+// qualifies).
 //
 // Design: two launches on the caller's stream.
-// (a) scan_kernel<kTri> (p1_scan.cuh): blocks of 128 segment rows walk the
-//     columns from j0 * tile in order: p1_fused_closed2's loop and row-side
-//     epilogue, and for the future columns (count, row sum, max, first
-//     argmax row, second max) per (128-row chunk, column), into global
+// (a) scan_kernel<kTri> (p1_scan_sm90.cuh): the TMA/wgmma scan of
+//     p1_fused_closed2 with its row-side epilogue from registers, walking
+//     B from column j0 * tile; for the future columns the same registers
+//     also give (count, row sum, max, first argmax row, second max) per
+//     (128-row chunk, column), through shared-memory atomics into global
 //     statistics.  Each (I, j) product is computed once.
 // (b) tri_fold_kernel: one thread per future column walks I, then k, then
 //     the block_m / 128 chunks of sub-block k in order, merges the chunk
@@ -33,11 +35,11 @@
 //     score in tile I skip the insert: it would only rewrite column ids of
 //     -inf slots, which are unspecified.
 
-#include "p1_scan.cuh"
+#include "p1_scan_sm90.cuh"
 
 namespace {
 
-using p1::NEG;
+using p1h::NEG;
 
 constexpr int FUT_C = 60;      // candidate slots of the packed future state
 constexpr int META_OFF = 120;  // first meta slot
@@ -53,7 +55,7 @@ __global__ void tri_fold_kernel(const int* __restrict__ st_cnt,
   const int64_t col = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (col >= n_fut) return;
   const int tpb = tile / bm;
-  const int cpb = bm / p1::BM;
+  const int cpb = bm / p1h::BM;
   float* fv = fpack + (fut0 + col) * 128;
   int* fc = reinterpret_cast<int*>(fv + FUT_C);
   float* fm = fv + META_OFF;
@@ -65,14 +67,14 @@ __global__ void tri_fold_kernel(const int* __restrict__ st_cnt,
       // sub-block k of tile I: the closed form from its chunks' statistics
       int cnt = 0, s1 = 0, rm = 0x7fffffff;
       float vm = NEG, vm2 = NEG;
-      const int64_t ch0 = (static_cast<int64_t>(I) * tile + static_cast<int64_t>(k) * bm) / p1::BM;
+      const int64_t ch0 = (static_cast<int64_t>(I) * tile + static_cast<int64_t>(k) * bm) / p1h::BM;
       for (int q = 0; q < cpb; ++q) {
         const int64_t idx = (ch0 + q) * n_fut + col;
         const int c = st_cnt[idx];
         if (c > 0) {
           cnt += c;
-          s1 += st_s1[idx] + p1::BM * q * c;
-          p1::merge_top2(vm, rm, vm2, st_v[idx], st_row[idx] + p1::BM * q, st_v2[idx]);
+          s1 += st_s1[idx] + p1h::BM * q * c;
+          p1h::merge_top2(vm, rm, vm2, st_v[idx], st_row[idx] + p1h::BM * q, st_v2[idx]);
         }
       }
       const bool ch1 = cnt >= 1, ch2 = cnt == 2;
@@ -139,10 +141,10 @@ extern "C" int p1_tri_fused(const void* a, const void* b, float thr,
   const int64_t cpg = seg_rows / tile;
   const int64_t col0 = j0 * tile;  // first walked column = first segment row
   const int64_t n_fut = n_pad - col0 - cpg * tile;
-  const int64_t size = (seg_rows / p1::BM) * n_fut;
+  const int64_t size = (seg_rows / p1h::BM) * n_fut;
   int* si = static_cast<int*>(stats_i);
   float* sf = static_cast<float*>(stats_f);
-  p1::Args p{};
+  p1h::Args p{};
   p.A = static_cast<const __nv_bfloat16*>(a);
   p.B = static_cast<const __nv_bfloat16*>(b) + col0 * d;
   p.thr = thr;
@@ -162,7 +164,7 @@ extern "C" int p1_tri_fused(const void* a, const void* b, float thr,
   p.st_row = si + 2 * size;
   p.st_v = sf;
   p.st_v2 = sf + size;
-  int e = p1::launch<p1::kTri>(p, stream);
+  int e = p1h::launch<p1h::kTri>(p, stream);
   if (e != 0 || n_fut == 0) return e;
   constexpr int threads = 256;
   const unsigned blocks = static_cast<unsigned>((n_fut + threads - 1) / threads);

@@ -116,9 +116,10 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, float]:
 
 
 def ptxas_report(names: Iterable[str]) -> Dict[str, str]:
-    """``nvcc -Xptxas -v`` for each named source (registers, shared memory
-    and spills of each kernel), compiled to a throwaway cubin, one nvcc per
-    source, all started together.  Returns the ptxas lines per name."""
+    """``nvcc -Xptxas -v`` for each named source (registers, shared memory,
+    stack and spills of each kernel), compiled to a throwaway cubin, one
+    nvcc per source, all started together.  Returns the ptxas lines per
+    name, with the stack and spill lines that follow them."""
     out_dir = BUILD_DIR / "ptxas"
     out_dir.mkdir(parents=True, exist_ok=True)
     flags = [f for f in NVCC_FLAGS if f not in ("-shared", "-Xcompiler", "-fPIC")]
@@ -137,7 +138,8 @@ def ptxas_report(names: Iterable[str]) -> Dict[str, str]:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc -Xptxas -v failed for csrc/{n}.cu:\n{text}")
         report[n] = "\n".join(
-            line for line in text.splitlines() if "ptxas" in line
+            line for line in text.splitlines()
+            if "ptxas" in line or "stack frame" in line or "spill" in line
         )
     return report
 

@@ -16,9 +16,7 @@ main path went through the kernels.
 * ``p1_tri_fused`` (csrc/p1_tri_fused.cu) replaces the Pallas kernel of the
   same name (pallas_kernels.py:626-726): the triangular self-join, each
   tile pair multiplied once.
-  ``p1_fused_closed2`` and ``p1_fused_chain`` share the TMA/wgmma scan of
-  csrc/p1_scan_sm90.cuh; ``p1_tri_fused`` runs the wmma scan of
-  csrc/p1_scan.cuh.
+  The three share the TMA/wgmma scan of csrc/p1_scan_sm90.cuh.
 * ``device_hash_codes`` (csrc/device_hash_codes.cu) replaces the XLA
   program ``_device_hash_codes`` (string_grouper_tpu/ops/matcher.py:398-464).
 """
@@ -537,6 +535,8 @@ def device_hash_codes(codes: torch.Tensor, inv_norm: torch.Tensor,
         raise ValueError("device_hash_codes: packed row stride != ceil(width/5)")
     if base ** ngram > table_id.numel():
         raise ValueError("device_hash_codes: table smaller than base**ngram")
+    if not 1 <= ngram <= 32:
+        raise ValueError("device_hash_codes: ngram must be 1..32")
     out = torch.empty((n, dim), dtype=torch.bfloat16, device=codes.device)
     if n == 0:
         return out

@@ -132,13 +132,12 @@ def test_chain_kernel_equals_plain_and_one_pass(dev, m, chunks, d, tile,
     assert int(got[1].sum()) > 0 and int(got[2].max()) > 2
 
 
-@pytest.mark.parametrize("n,d,tile,cpg,bm,cand_c,thr", [
-    (2048, 128, 256, 2, 128, 16, 0.4),
-    (1024, 256, 256, 1, 256, 8, 0.3),   # last segment's j0 is the last tile
-    (4096, 512, 512, 2, 512, 64, 0.3),
-])
-def test_tri_kernel_equals_plain(dev, n, d, tile, cpg, bm, cand_c, thr):
-    b = torch.from_numpy(_dyadic(n, d, seed=n + d)).to(torch.bfloat16).to(dev)
+def _check_tri_segments(b, tile, cpg, bm, cand_c, thr):
+    """Every segment of the triangular scan over ``b``, in order (the last
+    one has no future columns), kernel against plain: row sides and the
+    packed future state equal after each segment."""
+    dev = b.device
+    n = b.shape[0]
     seg_rows = cpg * tile
     f_k = K.tri_future_init(n, dev)
     f_p = K.tri_future_init(n, dev)
@@ -156,7 +155,35 @@ def test_tri_kernel_equals_plain(dev, n, d, tile, cpg, bm, cand_c, thr):
         assert torch.equal(kv.cpu(), qv.cpu()), (s, "future values")
         assert torch.equal(_masked_cols(kv, kc), _masked_cols(qv, qc)), (s, "future cols")
         assert torch.equal(km.cpu(), qm.cpu()), (s, "future meta")
-    assert float(K.tri_future_unpack(f_k)[2][:, 0].sum()) > 0
+    return K.tri_future_unpack(f_k)[2]
+
+
+@pytest.mark.parametrize("n,d,tile,cpg,bm,cand_c,thr", [
+    (2048, 128, 256, 2, 128, 16, 0.4),
+    (1024, 256, 256, 1, 256, 8, 0.3),   # last segment's j0 is the last tile
+    (4096, 512, 512, 2, 512, 64, 0.3),
+    (2048, 384, 256, 1, 128, 256, 0.3),  # d 384, block_m < tile, widest top-C
+    (4096, 512, 512, 2, 128, 8, 0.3),   # d 512, block_m 128, smallest C
+    (2048, 128, 512, 1, 512, 256, 0.4),  # block_m = tile, C 256
+    (3072, 384, 512, 2, 256, 8, 0.3),   # 3 segments, d 384, C 8
+])
+def test_tri_kernel_equals_plain(dev, n, d, tile, cpg, bm, cand_c, thr):
+    b = torch.from_numpy(_dyadic(n, d, seed=n + d)).to(torch.bfloat16).to(dev)
+    meta = _check_tri_segments(b, tile, cpg, bm, cand_c, thr)
+    assert float(meta[:, 0].sum()) > 0
+
+
+def test_tri_kernel_ties_take_first_row(dev):
+    """Many duplicate rows: a future column meets equal maxima in rows held
+    by different quads, warps, warpgroups and 128-row chunks; the column
+    side must keep the first row, and count exactly-2 and more-than-2
+    columns as the plain version does."""
+    rng = np.random.default_rng(5)
+    distinct = _dyadic(256, 256, seed=11)
+    b_np = distinct[rng.integers(0, 256, size=2048)]
+    b = torch.from_numpy(b_np).to(torch.bfloat16).to(dev)
+    meta = _check_tri_segments(b, 256, 2, 256, 16, 0.95)
+    assert int((meta[:, 1] == 2).sum()) > 0 and int((meta[:, 1] > 2).sum()) > 0
 
 
 def test_new_kernels_raise_on_unsupported_cuda_shapes(dev):
@@ -170,27 +197,35 @@ def test_new_kernels_raise_on_unsupported_cuda_shapes(dev):
                        0.5, 256, 8, 128)
 
 
-@pytest.mark.parametrize("dim", [512, 4096])  # 4096: > 48 KB of histograms
+# 2: one hash bit; 4096: > 48 KB of histograms; 32768: one warp per block
+@pytest.mark.parametrize("dim", [2, 128, 512, 4096, 32768])
 def test_device_hash_kernel_within_one_ulp(dev, dim):
-    src = TfidfEncoder(StringGrouperConfig()).fit_transform(
-        synthetic_company_names(5000)
-    ).device_src
+    """Packed and raw codes; widths a multiple of 40, one that is not a
+    multiple of 5, and one below the n-gram size (every row gets h = 0);
+    rows shorter than the n-gram size in the corpus."""
+    names = synthetic_company_names(5000) + ["ab", "q", "xy", "abc"]
+    src = TfidfEncoder(StringGrouperConfig()).fit_transform(names).device_src
     n = len(src.inv_norm)
-    width = -(-int(src.row_lengths().max()) // 40) * 40
-    for packed in (True, False):
-        order = np.arange(n, dtype=np.int32)
-        codes = (M._fill_code_rows6(src, order, width) if packed
-                 else M._fill_code_rows(src, order, width))
-        args = (M._to_device(codes, dev), M._to_device(src.inv_norm, dev),
-                M._to_device(src.table_id, dev), M._to_device(src.idf32, dev),
-                dim, src.base, src.ngram)
-        w = width if packed else None
-        got = K.device_hash_codes(*args, width=w)
-        again = K.device_hash_codes(*args, width=w)
-        want = K.device_hash_codes_plain(*args, width=w)
-        assert torch.equal(got, again)
-        ulp = (got.view(torch.int16).int() - want.view(torch.int16).int()).abs()
-        assert int(ulp.max()) <= 1
+    wide = -(-int(src.row_lengths().max()) // 40) * 40
+    for width in (wide, wide - 7, src.ngram - 1):
+        for packed in (True, False):
+            order = np.arange(n, dtype=np.int32)
+            codes = (M._fill_code_rows6(src, order, width) if packed
+                     else M._fill_code_rows(src, order, width))
+            args = (M._to_device(codes, dev), M._to_device(src.inv_norm, dev),
+                    M._to_device(src.table_id, dev), M._to_device(src.idf32, dev),
+                    dim, src.base, src.ngram)
+            w = width if packed else None
+            got = K.device_hash_codes(*args, width=w)
+            again = K.device_hash_codes(*args, width=w)
+            want = K.device_hash_codes_plain(*args, width=w)
+            assert torch.equal(got, again)
+            ulp = (got.view(torch.int16).int() - want.view(torch.int16).int()).abs()
+            assert int(ulp.max()) <= 1, (width, packed)
+            if width < src.ngram:
+                assert int(got.view(torch.int16).abs().sum()) == 0
+            else:
+                assert int((got.float().abs().sum(1) == 0).sum()) < n
 
 
 def test_match_strings_card_equals_cpu(dev):
