@@ -47,12 +47,23 @@ Phases (any failure raises and the script exits non-zero without a result):
    last with no future columns): d = 128, 384 (the hash's first d columns,
    renormalised) and 512, block_m 128 and 4096, C = 8 and 256; row sides
    after every segment and the future state at the end, by phase 2's rule.
+3f. The packed-slot torch op ``_device_hash`` (not a hand kernel) on the
+   663k corpus's ``pack_hash_inputs`` at its full ELL width: on the card
+   bitwise equal to the same op on the CPU over the first 20,000 rows (the
+   count of differing elements is printed), timed beside its bytes bound
+   and an ``index_add_`` yardstick.
 4. ``match_strings`` on the card frame-equal to ``device="cpu"`` at 20,000
-   names, and equal to a brute-force fp64 cosine oracle at 5,000 names.
+   names, and equal to a brute-force fp64 cosine oracle at 5,000 names;
+   then three payload-less fits on the packed-slot hash, each card == CPU
+   with ``p1_fused_closed2`` launched and ``device_hash_codes`` not: the
+   float32 and the custom-regex self-joins at 20,000 names, and a float32
+   cross-join of them against 5,000 names.
 5. The full self-join at 663,000 names on the card: wall time, phases,
    escalation rungs, kernel launches, and the output row count; then the
    same with the column-chunked pipeline (SG_TPU_CHUNKED_P1=1) at G = 2
-   and G = 3 chunks: the same frame, with p1_wait and wall printed.
+   and G = 3 chunks, and on the packed-slot path (SG_TPU_DEVICE_ENCODE=0:
+   no ``device_hash_codes`` launch): the same frame, with p1_wait and wall
+   printed.
 
 Without a CUDA GPU, or without the repository beside it, it exits non-zero
 and prints no result.
@@ -85,6 +96,10 @@ TOL = 1e-5
 # p1_fused_closed2).
 DEFAULT_PATH = ("p1_fused_closed2", "device_hash_codes")
 CHUNKED_PATH = ("p1_fused_chain", "device_hash_codes")
+# ... and the packed-slot path (payload-less corpora, SG_TPU_DEVICE_ENCODE=0),
+# whose hash is the torch op ``_device_hash``: device_hash_codes must stay 0.
+PACKED_PATH = ("p1_fused_closed2",)
+CUSTOM_REGEX = r"[,-./#&]|\s"
 # The three kernels on the TMA/wgmma scan (csrc/p1_scan_sm90.cuh).
 SCAN_KERNELS = ("p1_fused_closed2", "p1_fused_chain", "p1_tri_fused")
 # Rows of the 663k payload that phase 3 also hashes with the plain version
@@ -95,8 +110,16 @@ PEAK_BF16 = 989e12
 PEAK_BYTES = 3.35e12
 
 
+START = time.perf_counter()
+
+
 def log(*args):
     print(*args, flush=True)
+
+
+def stamp(what: str) -> None:
+    """Seconds since the script started, at the start of a phase."""
+    log(f"[{time.perf_counter() - START:.1f} s] {what}")
 
 
 def cuda_ms(fn, reps: int, warmup: bool = True) -> float:
@@ -543,6 +566,44 @@ def tri_square_ab(K, M, h, src, thr, seg_rows=73_728, n_pad=589_824):
     return tri_launches
 
 
+# ----------------------------------------------------------------- phase 3f
+def check_packed_hash(M, ell, dev):
+    """The packed-slot torch op ``_device_hash`` (not a hand kernel) on the
+    663k corpus at its full ELL width: on the card against the same op on
+    the CPU over the first N_HASH_CPU rows (both sum each bucket in slot
+    order: bitwise), timed beside its bytes bound and an ``index_add_``
+    yardstick over the same (row, bucket, value) slots."""
+    t0 = time.perf_counter()
+    packed_h = M.pack_hash_inputs(ell, ell.n_rows, 512)
+    pack_s = time.perf_counter() - t0
+    packed = M._to_device(packed_h, dev)
+    n, w = packed.shape
+    h = M._device_hash(packed, 512)
+    assert torch.equal(h, M._device_hash(packed, 512)), "_device_hash not repeatable"
+    r = min(N_HASH_CPU, n)
+    h_c = M._device_hash(packed[:r].cpu(), 512)
+    n_diff = int((h[:r].cpu().view(torch.int16) != h_c.view(torch.int16)).sum())
+    log(f"_device_hash (torch op) on the card vs on the CPU: first {r} rows: "
+        f"{n_diff} of {h_c.numel()} elements differ (bitwise required)")
+    assert n_diff == 0, f"_device_hash: {n_diff} elements differ from the CPU"
+    assert int((h.float().abs().sum(1) > 0).sum()) > 0.99 * n
+
+    x = packed.long()
+    ok = x != 0
+    flat = (torch.arange(n, device=dev)[:, None] * 512 + (x >> 16))[ok]
+    vals = ((x & 0xFFFF).float() * (1.0 / 65535.0))[ok]
+    del x, ok
+    acc = torch.zeros(n * 512, dtype=torch.float32, device=dev)
+    lib_ms = cuda_ms(lambda: acc.index_add_(0, flat, vals), 5)
+    ms = cuda_ms(lambda: M._device_hash(packed, 512), 3)
+    nbytes = n * w * 4 + n * 512 * 2
+    bound_ms = nbytes / PEAK_BYTES * 1e3
+    log(f"_device_hash (torch op): n={n} W={w} dim=512: ms={ms} "
+        f"bound_ms={bound_ms} (bytes: n*W*4 read + n*512*2 written) "
+        f"library_ms(index_add_ of {len(vals)} slot values)={lib_ms}; "
+        f"host pack_hash_inputs {pack_s:.3f} s")
+
+
 # ------------------------------------------------------------------ phase 4
 def oracle_frame_check(sgt, TfidfEncoder, StringGrouperConfig, names):
     """Brute-force fp64 cosine oracle (dense TF-IDF of unique rows, all
@@ -612,6 +673,7 @@ def main() -> int:
             f"csrc/{name}.cu: stack, spills or serialized wgmma"
 
     # ---- phases 2-3: kernels against their plain versions -----------------
+    stamp("phases 2-3e: kernels against their plain versions")
     t0 = time.perf_counter()
     names_full = synthetic_company_names(N_FULL)
     ell_full = TfidfEncoder(StringGrouperConfig()).fit_transform(names_full)
@@ -634,10 +696,15 @@ def main() -> int:
     res_tri["max_abs_err"] = max(res_tri["max_abs_err"], check_tri_domain(K, h, thr))
     torch.cuda.empty_cache()
     tri_launches = tri_square_ab(K, M, h, ell_full.device_src, thr)
-    del h, ell_full
+    del h
+    torch.cuda.empty_cache()
+    stamp("phase 3f: the packed-slot torch op")
+    check_packed_hash(M, ell_full, dev)
+    del ell_full
     torch.cuda.empty_cache()
 
     # ---- phase 4: card vs CPU, oracle -------------------------------------
+    stamp("phase 4: card vs CPU frames, oracle")
     s20 = pd.Series(synthetic_company_names(N_FRAME))
     K.reset_launches()
     t0 = time.perf_counter()
@@ -655,8 +722,33 @@ def main() -> int:
     oracle_frame_check(sgt, TfidfEncoder, StringGrouperConfig,
                        synthetic_company_names(N_ORACLE))
     assert all(K.LAUNCHES[k] > 0 for k in DEFAULT_PATH), f"5k launches {K.LAUNCHES}"
+    # payload-less corpora: the packed-slot hash feeds the fused kernel
+    stamp("phase 4: payload-less fits, card vs CPU")
+    dupes5 = pd.Series(synthetic_company_names(N_ORACLE, seed=7))
+    for label, args, kw in (
+        ("float32 self-join", (s20,), dict(tfidf_matrix_dtype=np.float32)),
+        ("custom-regex self-join", (s20,), dict(regex=CUSTOM_REGEX)),
+        (f"float32 cross-join vs {N_ORACLE}", (s20, dupes5),
+         dict(tfidf_matrix_dtype=np.float32, min_similarity=0.7)),
+    ):
+        K.reset_launches()
+        t0 = time.perf_counter()
+        card_df = sgt.match_strings(*args, **kw)
+        t_card = time.perf_counter() - t0
+        launches = dict(K.LAUNCHES)
+        assert all(launches[k] > 0 for k in PACKED_PATH), f"{label}: {launches}"
+        assert launches["device_hash_codes"] == 0, f"{label}: {launches}"
+        t0 = time.perf_counter()
+        cpu_df = sgt.match_strings(*args, device="cpu", **kw)
+        t_cpu = time.perf_counter() - t0
+        pd.testing.assert_frame_equal(card_df, cpu_df)
+        assert len(card_df) > 0
+        log(f"frames ({label}, {N_FRAME} names, packed-slot hash): card == "
+            f"cpu, {len(card_df)} rows; card {t_card:.2f} s, cpu {t_cpu:.2f} s; "
+            f"launches {launches}")
 
-    # ---- phase 5: the full self-join, default and chunked ------------------
+    # ---- phase 5: the full self-join, default, chunked and packed ----------
+    stamp("phase 5: the 663k self-joins")
     s_full = pd.Series(names_full)
 
     def self_join(label, path):
@@ -690,6 +782,39 @@ def main() -> int:
         del frame
     del os.environ["SG_TPU_CHUNKED_P1"], os.environ["SG_TPU_CHUNKED_P1_GROUPS"]
     log("chunked self-joins: frames equal to the default run's")
+
+    # the packed-slot path on the payload corpus: no clean-equality
+    # collapse, no prefetch; each call of the torch op is counted and its
+    # span on the calling stream timed with CUDA events
+    stamp("phase 5: the 663k self-join on the packed-slot path")
+    hash_calls = []
+    real_hash = M._device_hash
+
+    def timed_hash(packed, *a, **k):
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        h = real_hash(packed, *a, **k)
+        t1.record()
+        hash_calls.append((tuple(packed.shape), t0, t1))
+        return h
+
+    M._device_hash = timed_hash
+    os.environ["SG_TPU_DEVICE_ENCODE"] = "0"
+    try:
+        frame, l_packed = self_join("SG_TPU_DEVICE_ENCODE=0", PACKED_PATH)
+    finally:
+        del os.environ["SG_TPU_DEVICE_ENCODE"]
+        M._device_hash = real_hash
+    assert l_packed["device_hash_codes"] == 0, f"packed 663k launches {l_packed}"
+    assert hash_calls, "the packed 663k run built no packed-slot hash"
+    pd.testing.assert_frame_equal(frame, out)
+    del frame
+    torch.cuda.synchronize()
+    spans = [(shape, t0.elapsed_time(t1)) for shape, t0, t1 in hash_calls]
+    log(f"packed self-join: frame equal to the default run's; _device_hash "
+        f"calls {len(spans)} (packed shape, ms): {spans}")
+    stamp("all phases passed")
 
     src = "string_grouper_tpu_torch/csrc/{}.cu"
     pk = "string_grouper_tpu/ops/pallas_kernels.py:{}"

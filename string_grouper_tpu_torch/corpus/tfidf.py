@@ -194,6 +194,10 @@ class EllMatrix:
     def width(self) -> int:
         return self.ids.shape[1]
 
+    def nnz_per_row(self) -> np.ndarray:
+        self.wait_ready()
+        return (self.ids >= 0).sum(axis=1)
+
     def to_dense(self) -> np.ndarray:
         """Dense (n_rows, n_terms) float64 matrix -- for conformance tests."""
         self.wait_ready()

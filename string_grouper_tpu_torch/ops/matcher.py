@@ -10,7 +10,12 @@
       ``device_hash_codes`` (ops/kernels.py), on a worker thread at encode
       completion (``prefetch_corpus_hash``) -- or, opt-in
       (``SG_TPU_CHUNKED_P1=1``), in column chunks that the scan consumes as
-      chained ``p1_fused_chain`` passes while later chunks build.
+      chained ``p1_fused_chain`` passes while later chunks build.  A corpus
+      without the byte payload (float32, a custom regex, n-grams > 3, rows
+      over 4096 characters, non-ASCII kept as is), or any corpus under
+      ``SG_TPU_DEVICE_ENCODE=0``, ships its ELL rows as packed (bucket,
+      value) slots instead, expanded on the device by the torch op
+      ``_device_hash``.
   phase 1 (device): hashed upper-bound scores ``A_hash @ B_hash.T``; TF-IDF
       values are non-negative, so the hashed scores bound the exact cosine
       from above and the threshold drops no true match.  On CUDA the default
@@ -47,6 +52,7 @@ import torch
 from ..corpus.tfidf import EllMatrix
 from ..validation import resolve_device
 from .kernels import (
+    _KNUTH,
     device_hash_codes,
     p1_chain_init,
     p1_fused_chain,
@@ -271,6 +277,7 @@ def chunked_p1_will_engage(ell: EllMatrix, is_self: bool,
         is_self
         and src is not None
         and src.row_hash is not None
+        and device_encode_enabled()
         and _chunked_device_ok(device)
         and effective_threshold(min_similarity) > 0
         and _chunked_p1_size_ok(ell.n_rows)
@@ -292,6 +299,94 @@ def _to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
     if a.dtype == np.uint32:
         a = a.view(np.int32)
     return torch.from_numpy(a).to(device)
+
+
+def pack_hash_inputs(ell: EllMatrix, n_pad: int, dim: int) -> np.ndarray:
+    """Quantize an ELL matrix into wire-minimal packed int32 slots:
+    ``(bucket << 16) | qval``, (n_pad, ell.width), for ``_to_device``.
+
+    bucket = Knuth multiplicative hash of the term id into [0, dim)
+    (requires dim <= 2^15); qval = ceil(value * 65535) in uint16 -- an
+    UPWARD quantization, preserving the upper-bound property while keeping
+    quantization inflation of the bound below ~2e-4.  Padding slots and
+    padding rows carry qval 0."""
+    if dim > (1 << 15):
+        raise ValueError("hash_dim must be <= 32768")
+    ell.wait_ready()  # the engine's deferred value fill may still be running
+    packed = _pack_rows_ordered(
+        ell.ids, ell.vals64,
+        np.arange(ell.n_rows, dtype=np.int32), ell.width, dim,
+    )
+    if n_pad > ell.n_rows:
+        packed = np.pad(packed, ((0, n_pad - ell.n_rows), (0, 0)))
+    return packed
+
+
+def _pack_rows(ids: np.ndarray, vals64: np.ndarray, dim: int) -> np.ndarray:
+    u = (ids.astype(np.int64) * _KNUTH) % (1 << 32)
+    b = (u >> (32 - int(dim).bit_length() + 1)).astype(np.int64)
+    q = np.ceil(vals64 * 65535.0).clip(0, 65535).astype(np.int64)
+    return np.where(ids >= 0, (b << 16) | q, 0).astype(np.int32)
+
+
+def _pack_rows_ordered(
+    ids: np.ndarray,
+    vals64: np.ndarray,
+    order: np.ndarray,
+    out_width: int,
+    dim: int,
+) -> np.ndarray:
+    """``_pack_rows(ids[order][:, :out_width], ...)`` without materializing
+    the reordered ELL copies: the native kernel walks ``order`` directly
+    in one pass; numpy (several corpus-sized int64 temporaries) when the
+    native library is not built."""
+    from ..native import get_scorer_lib
+
+    order = np.ascontiguousarray(order, dtype=np.int32)
+    lib = get_scorer_lib()
+    if lib is not None:
+        out = np.empty((len(order), out_width), dtype=np.int32)
+        lib.pack_hash_rows(
+            np.ascontiguousarray(ids),
+            np.ascontiguousarray(vals64),
+            ids.shape[1],
+            order,
+            len(order),
+            out_width,
+            int(dim).bit_length() - 1,
+            out,
+        )
+        return out
+    return _pack_rows(ids[order][:, :out_width], vals64[order][:, :out_width], dim)
+
+
+def _device_hash(packed: torch.Tensor, dim: int,
+                 row_tile: int = 4096) -> torch.Tensor:
+    """Expand packed ``(bucket << 16) | qval16`` int32 slots (n, W) into the
+    dense (n, dim) bf16 hashed projection, value qval / 65535, on the
+    tensor's device (the torch-op form of the JAX package's XLA
+    ``_device_hash``).
+
+    Row tile by row tile, one ``scatter_add_`` per slot column into an f32
+    buffer: no two adds of one call land on the same element, so every
+    bucket sums in slot order on the CPU and on the card alike (one
+    ``index_add_`` over all slots would leave the order to float atomics).
+    Padding slots (qval 0) add 0."""
+    n, w = packed.shape
+    dev = packed.device
+    out = torch.empty((n, dim), dtype=torch.bfloat16, device=dev)
+    # A multiply by the f32 reciprocal, as JAX computes it (a division
+    # rounds differently).
+    scale = torch.tensor(1.0 / 65535.0, dtype=torch.float32, device=dev)
+    for lo in range(0, n, row_tile):
+        x = packed[lo:lo + row_tile]
+        bucket = ((x >> 16) & 0xFFFF).long()  # int32 >> is arithmetic
+        val = (x & 0xFFFF).float() * scale
+        h = torch.zeros((x.shape[0], dim), dtype=torch.float32, device=dev)
+        for j in range(w):
+            h.scatter_add_(1, bucket[:, j:j + 1], val[:, j:j + 1])
+        out[lo:lo + row_tile] = h
+    return out
 
 
 def _pack_codes6(codes: np.ndarray) -> np.ndarray:
@@ -388,9 +483,10 @@ def _code_width_tiers(lens: np.ndarray, ngram: int, quantum: int):
 
 def _tiered_rows(narrow: np.ndarray, build_tier,
                  device: torch.device) -> torch.Tensor:
-    """Two-tier upload shape: order rows narrow-first, build each tier's
-    device rows with ``build_tier(order_slice, wide)``, concatenate, and
-    gather back to the original row order on the device."""
+    """Two-tier upload shape of both upload paths (byte-payload codes and
+    packed slots): order rows narrow-first, build each tier's device rows
+    with ``build_tier(order_slice, wide)``, concatenate, and gather back to
+    the original row order on the device."""
     n = len(narrow)
     order = np.argsort(~narrow, kind="stable").astype(np.int64)
     k = int(narrow.sum())
@@ -450,6 +546,13 @@ def _build_hash_from_codes(src, n_pad: int, dim: int, device: torch.device,
     return h
 
 
+def device_encode_enabled() -> bool:
+    """Byte-level device encode (DeviceEncodeSrc) toggle, read per call:
+    on unless ``SG_TPU_DEVICE_ENCODE=0``, which sends every corpus down the
+    packed-slot path (the JAX package's knob)."""
+    return os.environ.get("SG_TPU_DEVICE_ENCODE", "1") != "0"
+
+
 _PREFETCH_POOL = ThreadPoolExecutor(
     max_workers=1, thread_name_prefix="sg-hash-prefetch"
 )
@@ -469,9 +572,10 @@ def prefetch_corpus_hash(ell: EllMatrix, hash_dim: int,
 
     Per-row hashing is row-local given the corpus-global (table, idf), so
     a device gather of unique rows from the full matrix equals shipping a
-    host-side subset.  No-op without a device payload."""
+    host-side subset.  No-op without a device payload or under
+    ``SG_TPU_DEVICE_ENCODE=0``."""
     src = getattr(ell, "device_src", None)
-    if src is None:
+    if src is None or not device_encode_enabled():
         return
     device = resolve_device(device)
     key = (hash_dim, device)
@@ -531,28 +635,49 @@ def _prefetched_hash(src, dim: int,
 
 
 def build_hash_matrix(ell: EllMatrix, n_pad: int, dim: int,
-                      device: torch.device) -> torch.Tensor:
-    """(n_pad, dim) bf16 hashed projection of an encoded corpus, rebuilt on
-    the device from its byte-level payload (DeviceEncodeSrc)."""
+                      device: torch.device, narrow_w: int = 32,
+                      min_rows: int = 10000) -> torch.Tensor:
+    """(n_pad, dim) bf16 hashed projection of an encoded corpus on
+    ``device``.
+
+    With a byte-level payload (DeviceEncodeSrc) the card rebuilds it from
+    cleaned character codes (``_build_hash_from_codes``).  Otherwise, or
+    under ``SG_TPU_DEVICE_ENCODE=0``, the rows upload as packed (bucket,
+    value) slots (``pack_hash_inputs``) expanded by ``_device_hash``: in two
+    width tiers when profitable (most corpora have a long-tail nnz
+    distribution -- e.g. 94% of company names fit 32 slots while the ELL
+    width is set by the longest string), restored to the original order
+    with a device gather."""
     if dim > (1 << 15):
         raise ValueError("hash_dim must be <= 32768")
     src = getattr(ell, "device_src", None)
-    if src is None:
-        from ..native.build import BUILD_ERROR
+    if src is not None and device_encode_enabled():
+        full = _prefetched_hash(src, dim, device)
+        if full is not None:
+            if n_pad > full.shape[0]:
+                full = torch.cat(
+                    [full, full.new_zeros((n_pad - full.shape[0], dim))]
+                )
+            return full
+        return _build_hash_from_codes(src, n_pad, dim, device)
+    n = ell.n_rows
+    nnz = ell.nnz_per_row()
+    narrow = nnz <= narrow_w
+    frac = narrow.mean() if n else 0.0
+    if ell.width <= narrow_w + 8 or frac < 0.5 or n < min_rows:
+        h = _device_hash(_to_device(pack_hash_inputs(ell, n, dim), device), dim)
+    else:
+        def build_tier(order_slice, wide):
+            packed = _pack_rows_ordered(
+                ell.ids, ell.vals64, order_slice,
+                ell.width if wide else narrow_w, dim,
+            )
+            return _device_hash(_to_device(packed, device), dim)
 
-        raise NotImplementedError(
-            "string_grouper_tpu_torch matches corpora encoded with the "
-            "byte-level payload only (native encoder built, default regex, "
-            "float64, ngram_size <= 3, rows <= 4096 characters); the "
-            "packed-slot path is not ported yet"
-            + (f" [native build: {BUILD_ERROR}]" if BUILD_ERROR else "")
-        )
-    full = _prefetched_hash(src, dim, device)
-    if full is not None:
-        if n_pad > full.shape[0]:
-            full = torch.cat([full, full.new_zeros((n_pad - full.shape[0], dim))])
-        return full
-    return _build_hash_from_codes(src, n_pad, dim, device)
+        h = _tiered_rows(narrow, build_tier, device)
+    if n_pad > n:
+        h = torch.cat([h, h.new_zeros((n_pad - n, dim))])
+    return h
 
 
 # ------------------------------------------------------------------- phase 1
@@ -990,16 +1115,19 @@ def _phase1_single(
     on_cuda = device.type == "cuda"
 
     def build_selected(ell, sel, n_valid, n_pad):
-        """Hash matrix of selected rows only: gathered from the prefetched
-        full-corpus matrix, else built from the rows' own payload."""
+        """Hash matrix of selected rows only.  With a byte-level payload:
+        gathered from the prefetched full-corpus matrix, else built from the
+        selected rows' own payload.  Otherwise the full matrix is hashed
+        (packed slots) and the selected rows gathered on the device."""
         src = getattr(ell, "device_src", None)
-        full = None if src is None else _prefetched_hash(src, hash_dim, device)
-        if full is None:
-            if src is None:
-                return build_hash_matrix(ell, n_pad, hash_dim, device)
-            return _build_hash_from_codes(
-                src.take_rows(sel), n_pad, hash_dim, device
-            )
+        if src is not None and device_encode_enabled():
+            full = _prefetched_hash(src, hash_dim, device)
+            if full is None:
+                return _build_hash_from_codes(
+                    src.take_rows(sel), n_pad, hash_dim, device
+                )
+        else:
+            full = build_hash_matrix(ell, ell.n_rows, hash_dim, device)
         idx = np.zeros(n_pad, dtype=np.int64)
         idx[:n_valid] = sel
         return _gather_pad_rows(full, _to_device(idx, device), n_valid, n_pad)
@@ -1013,6 +1141,7 @@ def _phase1_single(
     chunked_ok = (
         is_self
         and chunk_src is not None
+        and device_encode_enabled()
         and _chunked_device_ok(device)
         and _chunked_p1_size_ok(right.n_rows)
         and seg_rows % tile == 0
@@ -2053,12 +2182,12 @@ def match_with_collapse(
     the (possibly row-selected) matrices and returns
     ``(run, run_rows, c_cap, tile)``.
 
-    When the byte-level payload is present, its per-row hashes provide a
-    (strictly coarser, byte-verified) duplicate coding by CLEANED content,
-    superseding any raw-equality coding the caller passed.  With an
-    effective coding that actually collapses something, the scan runs over
-    unique rows and the result expands back exactly (``_expand_dedup``);
-    otherwise the plain whole-corpus pass runs.
+    When the byte-level payload is present (and ``SG_TPU_DEVICE_ENCODE`` is
+    not 0), its per-row hashes provide a (strictly coarser, byte-verified)
+    duplicate coding by CLEANED content, superseding any raw-equality coding
+    the caller passed.  With an effective coding that actually collapses
+    something, the scan runs over unique rows and the result expands back
+    exactly (``_expand_dedup``); otherwise the plain whole-corpus pass runs.
     """
     if left.n_rows == 0 or right_m.n_rows == 0:
         # Engine callers never get here (the encoder raises sklearn's
@@ -2068,17 +2197,18 @@ def match_with_collapse(
         return MatchPairs(rows=z, cols=z, sims=np.zeros(0),
                           true_max_n_matches=0, stats={})
     t_collapse0 = _time.perf_counter()
-    src_l = getattr(left, "device_src", None)
-    refined = _clean_codes(src_l) if src_l is not None else None
-    if refined is not None:
-        left_codes = refined
-    if not is_self:
-        src_r = getattr(right_m, "device_src", None)
-        refined_r = (
-            _clean_refined_codes(src_r) if src_r is not None else None
-        )
-        if refined_r is not None:
-            right_codes = refined_r
+    if device_encode_enabled():
+        src_l = getattr(left, "device_src", None)
+        refined = _clean_codes(src_l) if src_l is not None else None
+        if refined is not None:
+            left_codes = refined
+        if not is_self:
+            src_r = getattr(right_m, "device_src", None)
+            refined_r = (
+                _clean_refined_codes(src_r) if src_r is not None else None
+            )
+            if refined_r is not None:
+                right_codes = refined_r
     dedup = (
         left_codes is not None
         and len(left_codes) == left.n_rows

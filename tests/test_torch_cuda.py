@@ -11,7 +11,10 @@ must EQUAL their plain versions -- the running buffers' column ids where
 their values are finite (the ids of -inf slots are unspecified: the kernels
 skip inserts without a qualified score, the plain versions do not);
 ``device_hash_codes`` must be within 1 bf16 ulp of its plain version (which
-on the card sums by atomics in no fixed order) and bitwise repeatable.
+on the card sums by atomics in no fixed order) and bitwise repeatable.  The
+packed-slot torch op ``_device_hash`` must equal itself on the CPU bitwise,
+and payload-less corpora (float32, a custom regex) must give the CPU's frame
+on the fused kernel with no ``device_hash_codes`` launch.
 """
 
 import numpy as np
@@ -271,6 +274,35 @@ def test_kt2_escalation_rows_card_equals_cpu(dev):
     np.testing.assert_array_equal(out["cuda"][1], out["cpu"][1])
     np.testing.assert_allclose(out["cuda"][2], out["cpu"][2], rtol=0, atol=1e-5)
     assert len(out["cpu"][0]) > 0
+
+
+@pytest.mark.parametrize("dim", [128, 512])
+def test_device_hash_card_equals_cpu(dev, dim):
+    """The packed-slot torch op sums every bucket in slot order on both
+    devices: bitwise equal."""
+    ell = TfidfEncoder(StringGrouperConfig(tfidf_matrix_dtype=np.float32)
+                       ).fit_transform(synthetic_company_names(6000, seed=9))
+    assert ell.device_src is None
+    packed = M.pack_hash_inputs(ell, ell.n_rows + 5, dim)
+    got = M._device_hash(M._to_device(packed, dev), dim)
+    want = M._device_hash(torch.from_numpy(packed), dim)
+    assert torch.equal(got.cpu(), want)
+    assert int((want.float().abs().sum(1) == 0).sum()) == 5  # padding rows
+
+
+@pytest.mark.parametrize("kw", [
+    dict(tfidf_matrix_dtype=np.float32),
+    dict(regex=r"[,-./#&]|\s"),
+], ids=["float32", "regex"])
+def test_packed_match_strings_card_equals_cpu(dev, kw):
+    """Payload-less corpora: the packed-slot hash feeds the fused kernel on
+    the card; ``device_hash_codes`` is not launched."""
+    s = pd.Series(synthetic_company_names(3000, seed=13))
+    K.reset_launches()
+    card = sgt.match_strings(s, **kw)
+    assert K.LAUNCHES["p1_fused_closed2"] > 0, K.LAUNCHES
+    assert K.LAUNCHES["device_hash_codes"] == 0, K.LAUNCHES
+    pd.testing.assert_frame_equal(card, sgt.match_strings(s, device="cpu", **kw))
 
 
 def test_match_strings_cross_join_card_equals_cpu(dev):
