@@ -57,13 +57,24 @@ Phases (any failure raises and the script exits non-zero without a result):
    then three payload-less fits on the packed-slot hash, each card == CPU
    with ``p1_fused_closed2`` launched and ``device_hash_codes`` not: the
    float32 and the custom-regex self-joins at 20,000 names, and a float32
-   cross-join of them against 5,000 names.
+   cross-join of them against 5,000 names.  Then the other entry points,
+   card == CPU (exactly): ``group_similar_strings`` at 20,000 names with
+   ``group_rep`` centroid and first and ``match_most_similar`` of them
+   against 5,000 names (both with ``p1_fused_closed2`` and
+   ``device_hash_codes`` launched), and ``compute_pairwise_similarities``
+   on 5,000 pairs (a host encode and row dot).
 5. The full self-join at 663,000 names on the card: wall time, phases,
-   escalation rungs, kernel launches, and the output row count; then the
-   same with the column-chunked pipeline (SG_TPU_CHUNKED_P1=1) at G = 2
-   and G = 3 chunks, and on the packed-slot path (SG_TPU_DEVICE_ENCODE=0:
-   no ``device_hash_codes`` launch): the same frame, with p1_wait and wall
-   printed.
+   escalation rungs, kernel launches, and the output row count.  On that
+   run's grouper, with no refit: ``get_groups()`` (time, group count), and
+   the torch op ``_cc_labels`` on the card over its matches list, equal to
+   the native union-find's labels, each timed (the op beside its bytes
+   bound).  Then the same self-join with the column-chunked pipeline
+   (SG_TPU_CHUNKED_P1=1) at G = 2 and G = 3 chunks, and on the packed-slot
+   path (SG_TPU_DEVICE_ENCODE=0: no ``device_hash_codes`` launch): the same
+   frame, with p1_wait and wall printed.  Last, ``match_most_similar`` of
+   the 663,000 names against 100,000 others: wall, phases, launches,
+   100,000 output rows, and the verbatim check of
+   ``check_verbatim_duplicates``.
 
 Without a CUDA GPU, or without the repository beside it, it exits non-zero
 and prints no result.
@@ -88,6 +99,8 @@ N_FULL = 663_000
 ROWS_FULL = 4_558_752
 N_FRAME = 20_000
 N_ORACLE = 5_000
+# Duplicates matched against the full corpus by match_most_similar.
+N_NEAREST = 100_000
 # Score tolerance between the kernel and its plain version: f32 sums of 512
 # bf16 products in different orders differ by far less than this.
 TOL = 1e-5
@@ -641,6 +654,71 @@ def oracle_frame_check(sgt, TfidfEncoder, StringGrouperConfig, names):
     log(f"oracle ({n} names): {len(pairs)} pairs equal, max |sim diff| {err}")
 
 
+def assert_same(got, want):
+    """Card and CPU outputs of an entry point: equal, exactly."""
+    assert type(got) is type(want), (type(got), type(want))
+    if isinstance(want, pd.DataFrame):
+        pd.testing.assert_frame_equal(got, want, check_exact=True)
+    else:
+        pd.testing.assert_series_equal(got, want, check_exact=True)
+
+
+# ------------------------------------------------------------------ phase 5
+def check_cc_labels(CC, matches, n, dev):
+    """The torch op ``_cc_labels`` on the card over a matches list's edges
+    against the native union-find (the grouping path whenever the host
+    library builds): labels equal, both timed.  The op syncs with the host
+    once per round (its loop ends on the first round that changes no
+    label), so its CUDA-event time spans those waits too."""
+    a_h = np.ascontiguousarray(matches.master_side.to_numpy(), dtype=np.int64)
+    b_h = np.ascontiguousarray(matches.dupe_side.to_numpy(), dtype=np.int64)
+    native_s = []
+    for _ in range(2):  # the first call also loads the library
+        t0 = time.perf_counter()
+        want = CC.connected_components(a_h, b_h, n, dev)
+        native_s.append(time.perf_counter() - t0)
+    a = torch.tensor(a_h, device=dev)
+    b = torch.tensor(b_h, device=dev)
+    got = CC._cc_labels(a, b, n).cpu().numpy()
+    n_diff = int((got != want).sum())
+    assert n_diff == 0, f"_cc_labels: {n_diff} of {n} labels differ from the union-find"
+    ms = cuda_ms(lambda: CC._cc_labels(a, b, n), 3)
+    nbytes = 2 * len(a_h) * 8 + n * 8  # both edge ends read once, labels written once
+    bound_ms = nbytes / PEAK_BYTES * 1e3
+    log(f"_cc_labels (torch op) on the card: n={n} nodes, {len(a_h)} edges, "
+        f"{len(np.unique(want))} components; labels equal to the native "
+        f"union-find's (0 of {n} differ); ms={ms} bound_ms={bound_ms} (bytes: "
+        f"2*E*8 read + n*8 written); native union-find {native_s[1] * 1e3} ms "
+        f"on the host (first call {native_s[0] * 1e3} ms)")
+
+
+def check_verbatim_duplicates(master, dupes, matches):
+    """``match_most_similar``'s matches list (max_n_matches=1): every
+    duplicate whose string is present verbatim in the master matched at
+    similarity >= 1 - 1e-12, except a repeat whose master copies each kept
+    another duplicate at that similarity.  The cap is per master row (the
+    reference's), so a repeated duplicate string is left to a weaker match
+    or to itself, as in the JAX package.  Returns (verbatim, matched at 1,
+    repeats)."""
+    one = 1.0 - 1e-12
+    best = (matches.groupby("dupe_side").similarity.max()
+            .reindex(range(len(dupes))).to_numpy())
+    verbatim = dupes.isin(set(master)).to_numpy()
+    short = np.flatnonzero(verbatim & ~(best >= one))
+    if len(short):
+        top1 = matches.set_index("master_side")
+        assert top1.index.is_unique, "more than one match kept for a master row"
+        need = dupes.to_numpy()[short]
+        m_idx = np.flatnonzero(master.isin(set(need)).to_numpy())
+        copies = pd.Series(m_idx, index=master.to_numpy()[m_idx])
+        for d, text in zip(short, need):
+            kept = top1.reindex(np.atleast_1d(copies.loc[text]))
+            assert not kept.similarity.isna().any() and (kept.similarity >= one).all() \
+                and (kept.dupe_side != d).all(), \
+                f"duplicate {d} ({text!r}) is in the master but matched nothing at 1"
+    return int(verbatim.sum()), int(verbatim.sum() - len(short)), len(short)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA GPU visible", file=sys.stderr)
@@ -651,6 +729,7 @@ def main() -> int:
     from string_grouper_tpu_torch.ops import _build
     from string_grouper_tpu_torch.ops import kernels as K
     from string_grouper_tpu_torch.ops import matcher as M
+    from string_grouper_tpu_torch.ops import connected_components as CC
     from string_grouper_tpu_torch.utils.synthetic import synthetic_company_names
 
     dev = torch.device("cuda")
@@ -747,6 +826,43 @@ def main() -> int:
             f"cpu, {len(card_df)} rows; card {t_card:.2f} s, cpu {t_cpu:.2f} s; "
             f"launches {launches}")
 
+    # the other entry points: grouping (self-join + connected components),
+    # nearest match (cross-join at max_n_matches=1) and the pairwise dot
+    stamp("phase 4: group_similar_strings, match_most_similar, "
+          "compute_pairwise_similarities, card vs CPU")
+    for label, fn, args, kw in (
+        ("group_similar_strings, centroid", sgt.group_similar_strings, (s20,), {}),
+        ("group_similar_strings, first", sgt.group_similar_strings, (s20,),
+         dict(group_rep="first")),
+        (f"match_most_similar vs {N_ORACLE}", sgt.match_most_similar,
+         (s20, dupes5), {}),
+    ):
+        K.reset_launches()
+        t0 = time.perf_counter()
+        card_out = fn(*args, **kw)
+        t_card = time.perf_counter() - t0
+        launches = dict(K.LAUNCHES)
+        assert all(launches[k] > 0 for k in DEFAULT_PATH), f"{label}: {launches}"
+        t0 = time.perf_counter()
+        cpu_out = fn(*args, device="cpu", **kw)
+        t_cpu = time.perf_counter() - t0
+        assert_same(card_out, cpu_out)
+        assert len(card_out) == len(args[-1])
+        log(f"{label} ({N_FRAME} names): card == cpu, {len(card_out)} rows, "
+            f"{card_out.iloc[:, 0].nunique()} distinct first-column values; "
+            f"card {t_card:.2f} s, cpu {t_cpu:.2f} s; launches {launches}")
+    s5 = s20[:N_ORACLE]
+    t0 = time.perf_counter()
+    card_sims = sgt.compute_pairwise_similarities(s5, dupes5)
+    t_card = time.perf_counter() - t0
+    cpu_sims = sgt.compute_pairwise_similarities(s5, dupes5, device="cpu")
+    assert_same(card_sims, cpu_sims)
+    sims = card_sims.to_numpy()
+    assert len(sims) == N_ORACLE and np.isfinite(sims).all()
+    assert ((sims >= 0) & (sims <= 1 + 1e-12)).all()
+    log(f"compute_pairwise_similarities ({N_ORACLE} pairs): card == cpu, "
+        f"{int((sims > 0).sum())} non-zero, max {sims.max()}; {t_card:.2f} s")
+
     # ---- phase 5: the full self-join, default, chunked and packed ----------
     stamp("phase 5: the 663k self-joins")
     s_full = pd.Series(names_full)
@@ -769,14 +885,24 @@ def main() -> int:
         assert all(launches[k] > 0 for k in path), f"663k launches {launches}"
         assert len(frame) == ROWS_FULL, f"{len(frame)} output rows, expected {ROWS_FULL}"
         assert np.isfinite(frame.similarity.to_numpy()).all()
-        return frame, launches
+        return frame, launches, grouper
 
-    out, launches = self_join("default", DEFAULT_PATH)
+    out, launches, grouper = self_join("default", DEFAULT_PATH)
+    stamp("phase 5: get_groups() and the torch op _cc_labels on the 663k matches")
+    t0 = time.perf_counter()
+    groups = grouper.get_groups()
+    t_groups = time.perf_counter() - t0
+    n_groups = groups["group_rep_index"].nunique()
+    assert len(groups) == N_FULL and 0 < n_groups < N_FULL
+    log(f"get_groups() on the default run's grouper (no refit): {t_groups:.3f} s, "
+        f"{n_groups} groups of {N_FULL} names")
+    check_cc_labels(CC, grouper._matches_list, N_FULL, dev)
+    del grouper, groups
     os.environ["SG_TPU_CHUNKED_P1"] = "1"
     chain_launches = None
     for groups in ("2", "3"):
         os.environ["SG_TPU_CHUNKED_P1_GROUPS"] = groups
-        frame, l_chunked = self_join(f"SG_TPU_CHUNKED_P1=1, G={groups}", CHUNKED_PATH)
+        frame, l_chunked, _ = self_join(f"SG_TPU_CHUNKED_P1=1, G={groups}", CHUNKED_PATH)
         pd.testing.assert_frame_equal(frame, out)
         chain_launches = chain_launches or l_chunked["p1_fused_chain"]
         del frame
@@ -802,7 +928,7 @@ def main() -> int:
     M._device_hash = timed_hash
     os.environ["SG_TPU_DEVICE_ENCODE"] = "0"
     try:
-        frame, l_packed = self_join("SG_TPU_DEVICE_ENCODE=0", PACKED_PATH)
+        frame, l_packed, _ = self_join("SG_TPU_DEVICE_ENCODE=0", PACKED_PATH)
     finally:
         del os.environ["SG_TPU_DEVICE_ENCODE"]
         M._device_hash = real_hash
@@ -814,6 +940,44 @@ def main() -> int:
     spans = [(shape, t0.elapsed_time(t1)) for shape, t0, t1 in hash_calls]
     log(f"packed self-join: frame equal to the default run's; _device_hash "
         f"calls {len(spans)} (packed shape, ms): {spans}")
+
+    # the API function as a user calls it; its grouper is caught on its way
+    # through get_groups() for the phase timings and the matches list
+    stamp(f"phase 5: match_most_similar, {N_FULL} names against {N_NEAREST}")
+    dupes_n = pd.Series(synthetic_company_names(N_NEAREST, seed=7))
+    seen = []
+    real_get_groups = sgt.StringGrouper.get_groups
+
+    def spy_get_groups(self, *a, **k):
+        seen.append(self)
+        return real_get_groups(self, *a, **k)
+
+    sgt.StringGrouper.get_groups = spy_get_groups
+    K.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        nearest = sgt.match_most_similar(s_full, dupes_n)
+    finally:
+        sgt.StringGrouper.get_groups = real_get_groups
+    wall = time.perf_counter() - t0
+    l_nearest = dict(K.LAUNCHES)
+    assert len(seen) == 1
+    secs = seen[0].timings.seconds
+    assert all(l_nearest[k] > 0 for k in DEFAULT_PATH), f"nearest launches {l_nearest}"
+    assert len(nearest) == N_NEAREST, f"{len(nearest)} rows, expected {N_NEAREST}"
+    assert nearest.index.equals(dupes_n.index)
+    n_verb, n_one, n_rep = check_verbatim_duplicates(
+        s_full, dupes_n, seen[0]._matches_list)
+    log(f"match_most_similar ({N_FULL} x {N_NEAREST}): wall {wall:.3f} s "
+        f"(fit {sum(secs[k] for k in ('encode', 'match', 'assemble')):.3f} s), "
+        f"{len(nearest)} rows, {int(nearest.iloc[:, 0].notna().sum())} matched; "
+        f"{n_verb} duplicates present verbatim in the master: {n_one} matched at "
+        f"similarity >= 1 - 1e-12, {n_rep} repeats whose master copies each kept "
+        f"another duplicate at that similarity; launches {l_nearest}")
+    log("timings: " + json.dumps(
+        {k: (round(v, 4) if isinstance(v, float) else v) for k, v in secs.items()}))
+    del seen, nearest
     stamp("all phases passed")
 
     src = "string_grouper_tpu_torch/csrc/{}.cu"

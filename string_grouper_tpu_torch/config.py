@@ -35,6 +35,10 @@ DEFAULT_COLUMN_NAME: str = "side"
 DEFAULT_ID_NAME: str = "id"
 LEFT_PREFIX: str = "left_"
 RIGHT_PREFIX: str = "right_"
+MOST_SIMILAR_PREFIX: str = "most_similar_"
+DEFAULT_MASTER_NAME: str = "master"
+DEFAULT_MASTER_ID_NAME: str = f"{DEFAULT_MASTER_NAME}_{DEFAULT_ID_NAME}"
+GROUP_REP_PREFIX: str = "group_rep_"
 
 # --- Matcher defaults ---------------------------------------------------------
 # Feature-hash width of the phase-1 upper-bound filter matmul (power of two).

@@ -206,6 +206,33 @@ class EllMatrix:
         out[r, self.ids[r, k]] = self.vals64[r, k]
         return out
 
+    def row_dot(self, other: "EllMatrix") -> np.ndarray:
+        """Row-wise sparse dot in float64 (reference ``dot()``,
+        string_grouper.py:433-440).  Summation runs in ascending-term order,
+        matching CSR elementwise-multiply row sums."""
+        assert self.n_rows == other.n_rows
+        self.wait_ready()
+        other.wait_ready()
+        out = np.empty(self.n_rows, dtype=np.float64)
+        # Merge per row: both id lists ascending.  Vectorized by comparing
+        # every slot of self against other's slots; L (max distinct n-grams
+        # per string) is small, so L^2 per row is cheap -- but the (n, L, L)
+        # comparison cube is not, so process row BLOCKS to bound peak
+        # memory (at 663k x L=64 the whole-corpus cube would be ~20 GB).
+        blk = max(1, (1 << 24) // max(1, self.width * other.width))
+        for lo in range(0, self.n_rows, blk):
+            hi = min(self.n_rows, lo + blk)
+            a_ids, b_ids = self.ids[lo:hi], other.ids[lo:hi]
+            a_vals, b_vals = self.vals64[lo:hi], other.vals64[lo:hi]
+            eq = (
+                (a_ids[:, :, None] == b_ids[:, None, :])
+                & (a_ids[:, :, None] >= 0)
+            )
+            out[lo:hi] = np.einsum(
+                "nk,nkl,nl->n", a_vals, eq.astype(np.float64), b_vals
+            )
+        return out
+
 
 def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m

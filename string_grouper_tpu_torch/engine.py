@@ -1,24 +1,30 @@
 """Stateful matching engine: the ``StringGrouper`` of the port.
 
 API-compatible with ``string_grouper_tpu.engine.StringGrouper`` (itself the
-reference class, string_grouper/string_grouper.py:224-1010) for the match
-path: ``__init__ -> fit -> get_matches``.  Strings are encoded into ELL
+reference class, string_grouper/string_grouper.py:224-1010): the same
+constructor, lifecycle (``__init__ -> fit -> get_matches / get_groups``),
+data and option resets, interactive ``add_match`` / ``remove_match``
+editing, and method twins of the four high-level functions; the JAX-only
+mesh and multi-host tiers are not part of it.  Strings are encoded into ELL
 TF-IDF on the host (corpus/), matched on the card by the two-phase matcher
-(ops/matcher.py, CUDA kernels in csrc/) and assembled into the reference's
-DataFrame layout (frame.py).
+(ops/matcher.py, CUDA kernels in csrc/), grouped by connected components
+(ops/connected_components.py) and assembled into the reference's DataFrame
+layout (frame.py).
 """
 
 from __future__ import annotations
 
+import re
 import warnings
-from typing import Optional
+from typing import List, Optional, Union
+from unicodedata import normalize as _unicode_normalize
 
 import numpy as np
 import pandas as pd
 
 from .config import StringGrouperConfig
 from .corpus import TfidfEncoder
-from .frame import assemble_matches
+from .frame import assemble_groups, assemble_matches, assemble_nearest_matches
 from .native import set_native_threads
 from .ops.matcher import (
     chunked_p1_will_engage,
@@ -26,6 +32,7 @@ from .ops.matcher import (
     prefetch_corpus_hash,
     topn_cosine_matches,
 )
+from .ops.rescore import row_dot_fp64
 from .utils.profiling import PhaseTimings
 from .validation import (
     StringGrouperNotFitException,
@@ -38,10 +45,25 @@ from .validation import (
     validate_n_blocks,
     validate_replace_na_and_drop,
     validate_series_of_strings,
+    validate_strings_exist,
     validate_tfidf_dtype,
 )
 
 __all__ = ["StringGrouper", "StringGrouperNotFitException"]
+
+
+def _warn_legacy_kwargs(kwargs: dict) -> None:
+    """Deprecation warning for ``topn_slack``, which is accepted but inert
+    (the adaptive matcher's selection is always complete).  Warn on
+    EXPLICIT use only: the config default never warns."""
+    if "topn_slack" in kwargs:
+        warnings.warn(
+            "topn_slack is deprecated and has no effect: the adaptive "
+            "matcher's selection is always complete. The option will be "
+            "removed in a future release.",
+            DeprecationWarning,
+            stacklevel=3,
+        )
 
 
 def _empty_matches_list() -> pd.DataFrame:
@@ -58,9 +80,10 @@ class StringGrouper:
     """Holds master/duplicates Series and their match list.
 
     If ``duplicates`` is not given the master is matched against itself
-    (self-join).  Call :meth:`fit` to build the match list.  The matcher
-    runs on ``device`` (config; ``"cuda"`` by default, ``"cpu"`` only when
-    asked for).
+    (self-join).  Call :meth:`fit` to build the match list; matches can then
+    be edited with :meth:`add_match` / :meth:`remove_match`.  The matcher
+    and the grouping run on ``device`` (config; ``"cuda"`` by default,
+    ``"cpu"`` only when asked for).
     """
 
     def __init__(
@@ -71,42 +94,119 @@ class StringGrouper:
         duplicates_id: Optional[pd.Series] = None,
         **kwargs,
     ):
-        if "topn_slack" in kwargs:
-            warnings.warn(
-                "topn_slack is deprecated and has no effect: the adaptive "
-                "matcher's selection is always complete.",
-                DeprecationWarning,
-                stacklevel=2,
-            )
         self.is_build = False
+        self._master: Optional[pd.Series] = None
+        self._duplicates: Optional[pd.Series] = None
+        self._master_id: Optional[pd.Series] = None
+        self._duplicates_id: Optional[pd.Series] = None
         self._matches_list: pd.DataFrame = _empty_matches_list()
         self._true_max_n_matches: int = 0
+        self._max_n_matches: Optional[int] = 0
+
         # Unknown kwargs raise here, before data validation (reference
         # constructor order, string_grouper.py:260-267).
+        _warn_legacy_kwargs(kwargs)
         self._config: StringGrouperConfig = StringGrouperConfig(**kwargs)
-        self._max_n_matches = self._config.max_n_matches
-        #: per-phase wall times of the most recent fit
+        #: per-phase wall times of the most recent fit, plus the matcher's
+        #: stats as ``match.<name>``.  The stats are copied unrounded, where
+        #: the JAX package rounds float stats to 3 places: a reader
+        #: comparing the two sees more digits here, not other values.
         self.timings = PhaseTimings()
 
-        validate_series_of_strings(master, "Master")
-        if duplicates is not None:
-            validate_series_of_strings(duplicates, "Duplicates")
+        self._set_data(master, duplicates, master_id, duplicates_id)
+        self._set_options(**kwargs)  # ends with _build_corpus()
+
+    # ------------------------------------------------------------------ data
+    def _set_data(self, master, duplicates=None, master_id=None, duplicates_id=None):
+        self.master = master
+        self.duplicates = duplicates
         validate_input_data_combination(duplicates, master_id, duplicates_id)
         validate_id_data(master, duplicates, master_id, duplicates_id)
-        self._master = master
-        self._duplicates = duplicates
         self._master_id = master_id
         self._duplicates_id = duplicates_id
-        self._right_Series = master if duplicates is None else duplicates
+        self._right_Series = self._master if self._duplicates is None else self._duplicates
+        self.is_build = False
 
+    def _set_options(self, **kwargs):
+        self._config = StringGrouperConfig(**kwargs)
+        self._max_n_matches = self._config.max_n_matches
         validate_group_rep(self._config)
         validate_tfidf_dtype(self._config)
-        validate_replace_na_and_drop(self._config, master, duplicates)
+        validate_replace_na_and_drop(self._config, self._master, self._duplicates)
         validate_n_blocks(self._config.n_blocks)
         validate_hash_dim(self._config)
+        # Resolved on every option change: update_options(device=...) and
+        # the method twins move the next fit; without a GPU the default
+        # raises here as it does in __init__.
         self._device = resolve_device(self._config.device)
-        self._encoder = TfidfEncoder(self._config)
+        # Rebuild the encoder against the NEW config: options set via
+        # update_options / method-twin kwargs (ngram_size, regex,
+        # ignore_case, normalize_to_ascii, tfidf_matrix_dtype) must reach
+        # the next fit's tokenization (the reference's vectorizer reads the
+        # live config at fit time, string_grouper.py:699-707).
+        self._build_corpus()
 
+    def _build_corpus(self):
+        # The encoder is (re)fit inside fit()/dot() on the then-current data
+        # (the reference refits on every fit, string_grouper.py:685-707).
+        self._encoder = TfidfEncoder(self._config)
+        self.is_build = False
+
+    def reset_data(self, master, duplicates=None, master_id=None, duplicates_id=None):
+        """Swap the input Series without reconfiguring the engine
+        (reference string_grouper.py:310-323)."""
+        self._set_data(master, duplicates, master_id, duplicates_id)
+
+    def clear_data(self):
+        self._master = None
+        self._duplicates = None
+        self._master_id = None
+        self._duplicates_id = None
+        self._matches_list = None
+        self._right_Series = None
+        self.is_build = False
+
+    def update_options(self, **kwargs):
+        """Merge new options into the current config
+        (reference string_grouper.py:335-343)."""
+        _warn_legacy_kwargs(kwargs)
+        _ = StringGrouperConfig(**kwargs)
+        old_kwargs = self._config._asdict()
+        old_kwargs.update(kwargs)
+        self._set_options(**old_kwargs)
+
+    @property
+    def master(self):
+        return self._master
+
+    @master.setter
+    def master(self, master):
+        validate_series_of_strings(master, "Master")
+        self._master = master
+
+    @property
+    def duplicates(self):
+        return self._duplicates
+
+    @duplicates.setter
+    def duplicates(self, duplicates):
+        if duplicates is not None:
+            validate_series_of_strings(duplicates, "Duplicates")
+        self._duplicates = duplicates
+
+    # ------------------------------------------------------------- tokenizer
+    def n_grams(self, string: str) -> List[str]:
+        """Analyzer for a single string (reference string_grouper.py:365-378);
+        the bulk path uses the vectorized corpus pipeline instead."""
+        if self._config.ignore_case and string is not None:
+            string = string.lower()
+        if self._config.normalize_to_ascii:
+            string = _unicode_normalize("NFKD", string).encode("ASCII", "ignore").decode()
+        string = re.sub(self._config.regex, "", string)
+        grams = zip(*[string[i:] for i in range(self._config.ngram_size)])
+        return ["".join(g) for g in grams]
+
+    # ------------------------------------------------------------------- fit
     def fit(self) -> "StringGrouper":
         """Build the matches list (reference fit(), string_grouper.py:380-431)."""
         # number_of_processes caps the native kernels' OpenMP threads (the
@@ -115,6 +215,9 @@ class StringGrouper:
         self.timings.reset()
         is_self = self._duplicates is None
         cfg = self._config
+        # The ELL matrices (and the device hash prefetched onto the master's
+        # payload) live only for this call: nothing of a fit's encode stays
+        # on the engine, so a refit never holds the last fit's card memory.
         with self.timings.phase("encode"):
             # defer_fill: the ELL value fill runs on a worker thread while
             # the payload uploads and the device hash builds.
@@ -170,6 +273,22 @@ class StringGrouper:
         self.is_build = True
         return self
 
+    def dot(self) -> pd.Series:
+        """Row-wise similarity of master vs duplicates
+        (reference string_grouper.py:433-440): an encode and an exact host
+        row-wise dot; nothing runs on the device."""
+        set_native_threads(self._config.number_of_processes)
+        if len(self._master) != len(self._duplicates):
+            raise Exception("To perform this function, both input Series must have the same length.")
+        master_ell, dupes_ell = self._encoder.fit_transform_pair(
+            self._master, self._duplicates
+        )
+        sims = row_dot_fp64(
+            master_ell, dupes_ell, acc_dtype=self._config.tfidf_matrix_dtype
+        ).astype(self._config.tfidf_matrix_dtype)
+        return pd.Series(sims, name="similarity", index=self._master.index)
+
+    # --------------------------------------------------------------- outputs
     @validate_is_fit
     def get_matches(
         self,
@@ -199,6 +318,37 @@ class StringGrouper:
             ignore_index,
         )
 
+    @validate_is_fit
+    def get_groups(
+        self,
+        ignore_index: Optional[bool] = None,
+        replace_na: Optional[bool] = None,
+    ) -> Union[pd.DataFrame, pd.Series]:
+        """Group representatives (self-join) or nearest matches (cross-join)
+        (reference string_grouper.py:520-544)."""
+        if ignore_index is None:
+            ignore_index = self._config.ignore_index
+        if self._duplicates is None:
+            return assemble_groups(
+                self._master,
+                self._master_id,
+                self._matches_list,
+                ignore_index,
+                self._config.group_rep,
+                self._device,
+            )
+        if replace_na is None:
+            replace_na = self._config.replace_na
+        return assemble_nearest_matches(
+            self._master,
+            self._duplicates,
+            self._master_id,
+            self._duplicates_id,
+            self._matches_list,
+            ignore_index,
+            replace_na,
+        )
+
     def _get_non_matches_list(self) -> pd.DataFrame:
         """Zero-similarity completion (reference string_grouper.py:765-781)."""
         m_sz = len(self._master)
@@ -224,3 +374,102 @@ class StringGrouper:
         missing_pairs = missing_pairs.to_frame(index=False)
         missing_pairs["similarity"] = 0
         return missing_pairs
+
+    # ----------------------------------------------------- interactive edits
+    @validate_is_fit
+    def add_match(self, master_side: str, dupe_side: str) -> "StringGrouper":
+        """Manually add a match with similarity 1, propagating to prior
+        matches of the dupe side (reference string_grouper.py:646-666)."""
+        master_indices, dupe_indices = self._get_indices_of(master_side, dupe_side)
+        prior_matches = self._matches_list.master_side[
+            self._matches_list.dupe_side.isin(dupe_indices)
+        ]
+        dupe_indices = pd.concat([dupe_indices, prior_matches]).drop_duplicates()
+
+        new_matches = _cross_join(dupe_indices, master_indices, [1])
+        if self._duplicates is None:
+            new_matches = _make_symmetric(new_matches)
+        self._matches_list = pd.concat(
+            [self._matches_list.drop_duplicates(), new_matches], ignore_index=True
+        )
+        return self
+
+    @validate_is_fit
+    def remove_match(self, master_side: str, dupe_side: str) -> "StringGrouper":
+        """Remove a match (both directions for self-joins)
+        (reference string_grouper.py:668-683)."""
+        master_indices, dupe_indices = self._get_indices_of(master_side, dupe_side)
+        if self._duplicates is None:
+            master_indices = pd.concat([master_indices, dupe_indices])
+            dupe_indices = master_indices
+        self._matches_list = self._matches_list[
+            ~(
+                self._matches_list.master_side.isin(master_indices)
+                & self._matches_list.dupe_side.isin(dupe_indices)
+            )
+        ]
+        return self
+
+    def _get_indices_of(self, master_side: str, dupe_side: str):
+        """Positional indices of every occurrence of the two strings
+        (reference string_grouper.py:906-914)."""
+        master_strings = self._master
+        dupe_strings = self._master if self._duplicates is None else self._duplicates
+        validate_strings_exist(master_side, dupe_side, master_strings, dupe_strings)
+        master_indices = pd.Series(
+            np.flatnonzero(master_strings.to_numpy() == master_side)
+        )
+        dupe_indices = pd.Series(np.flatnonzero(dupe_strings.to_numpy() == dupe_side))
+        return master_indices, dupe_indices
+
+    # ------------------------------------------------------- method twins of
+    # the high-level functions, reusing this instance (reference :546-644).
+    # Unlike the API function, the match_most_similar twin does not force
+    # max_n_matches=1 (as in the reference).
+    def match_strings(
+        self, master, duplicates=None, master_id=None, duplicates_id=None, **kwargs
+    ) -> pd.DataFrame:
+        self.reset_data(master, duplicates, master_id, duplicates_id)
+        self.update_options(**kwargs)
+        self.fit()
+        return self.get_matches()
+
+    def match_most_similar(
+        self, master, duplicates, master_id=None, duplicates_id=None, **kwargs
+    ):
+        self.reset_data(master, duplicates, master_id, duplicates_id)
+        self.update_options(**kwargs)
+        self.fit()
+        return self.get_groups()
+
+    def group_similar_strings(self, strings_to_group, string_ids=None, **kwargs):
+        self.reset_data(strings_to_group, master_id=string_ids)
+        self.update_options(**kwargs)
+        self.fit()
+        return self.get_groups()
+
+    def compute_pairwise_similarities(self, string_series_1, string_series_2, **kwargs):
+        self.reset_data(string_series_1, string_series_2)
+        self.update_options(**kwargs)
+        return self.dot()
+
+
+def _make_symmetric(new_matches: pd.DataFrame) -> pd.DataFrame:
+    """(reference string_grouper.py:966-971)"""
+    switched = pd.DataFrame(
+        {
+            "master_side": new_matches.dupe_side,
+            "dupe_side": new_matches.master_side,
+            "similarity": new_matches.similarity,
+        }
+    )
+    return pd.concat([new_matches, switched])
+
+
+def _cross_join(dupe_indices, master_indices, similarities) -> pd.DataFrame:
+    """(reference string_grouper.py:973-978)"""
+    mi = pd.MultiIndex.from_product(
+        [master_indices, dupe_indices, similarities],
+        names=["master_side", "dupe_side", "similarity"],
+    )
+    return pd.DataFrame(index=mi).reset_index()

@@ -88,3 +88,63 @@ def rescore_pairs_fp64(
             out[s : s + chunk] = np.einsum("pk,pk->p", a_vals, contrib)
     return out
 
+
+def row_dot_fp64(
+    left: EllMatrix, right: EllMatrix, acc_dtype=np.float64
+) -> np.ndarray:
+    """Row-wise exact dot of two equal-length ELL matrices (reference
+    ``dot()``, string_grouper.py:433-440), accumulated in ``acc_dtype``.
+
+    float32 configurations reproduce the reference's chain exactly: scipy's
+    ``multiply().sum(axis=1)`` reduces each row's nonzero products with
+    numpy's ufunc machinery (PAIRWISE float32 summation, not sequential
+    adds -- unlike sp_matmul_topn's sequential SPA on the match path), so
+    this path extracts the shared-term products in ascending term order and
+    hands the reduction to ``np.add.reduceat`` itself."""
+    assert left.n_rows == right.n_rows
+    left.wait_ready()
+    right.wait_ready()
+    if np.dtype(acc_dtype) == np.float32:
+        n = left.n_rows
+        out = np.zeros(n, dtype=np.float32)
+        # Row blocks bound the (blk, La, Lb) comparison cube (a
+        # corpus-sized cube would be tens of GB at 663k rows).
+        blk = max(1, (1 << 24) // max(1, left.width * right.width))
+        for lo in range(0, n, blk):
+            hi = min(n, lo + blk)
+            a_ids, b_ids = left.ids[lo:hi], right.ids[lo:hi]
+            a_vals = left.vals64[lo:hi].astype(np.float32)
+            b_vals = right.vals64[lo:hi].astype(np.float32)
+            eq = (a_ids[:, :, None] == b_ids[:, None, :]) & (
+                a_ids[:, :, None] >= 0
+            )
+            # Per left slot, its (unique) matching right value -- the
+            # axis-2 'sum' selects a single element, no rounding.
+            bm = np.where(eq, b_vals[:, None, :], np.float32(0)).sum(
+                axis=2, dtype=np.float32
+            )
+            matched = eq.any(axis=2)
+            prods = (a_vals * bm)[matched]  # row-major: ascending order
+            counts = matched.sum(axis=1)
+            starts = np.concatenate(([0], np.cumsum(counts)[:-1]))
+            nz = counts > 0
+            if prods.size:
+                red = np.add.reduceat(prods, starts[nz])
+                out[lo:hi][nz] = red
+        return out.astype(np.float64)
+    lib = get_scorer_lib()
+    if lib is not None:
+        out = np.empty(left.n_rows, dtype=np.float64)
+        lib.row_dot_f64(
+            np.ascontiguousarray(left.ids),
+            np.ascontiguousarray(left.vals64),
+            left.width,
+            np.ascontiguousarray(right.ids),
+            np.ascontiguousarray(right.vals64),
+            right.width,
+            left.n_rows,
+            out,
+        )
+        return out
+    return left.row_dot(right)
+

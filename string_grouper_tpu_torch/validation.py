@@ -124,6 +124,14 @@ def validate_hash_dim(config: StringGrouperConfig):
         )
 
 
+def validate_strings_exist(master_side, dupe_side, master_strings, dupe_strings):
+    """(reference string_grouper.py:980-985)"""
+    if not master_strings.isin([master_side]).any():
+        raise ValueError(f"{master_side} not found in StringGrouper string series")
+    if not dupe_strings.isin([dupe_side]).any():
+        raise ValueError(f"{dupe_side} not found in StringGrouper dupe string series")
+
+
 def resolve_device(device) -> torch.device:
     """The torch device the matcher runs on.  ``"cuda"`` (the default)
     without a visible GPU raises instead of quietly running on the CPU:

@@ -14,7 +14,9 @@ skip inserts without a qualified score, the plain versions do not);
 on the card sums by atomics in no fixed order) and bitwise repeatable.  The
 packed-slot torch op ``_device_hash`` must equal itself on the CPU bitwise,
 and payload-less corpora (float32, a custom regex) must give the CPU's frame
-on the fused kernel with no ``device_hash_codes`` launch.
+on the fused kernel with no ``device_hash_codes`` launch.  The grouping and
+nearest-match entry points must give the CPU's frames, and the torch op
+``_cc_labels`` on the card the native union-find's labels, bitwise.
 """
 
 import numpy as np
@@ -313,3 +315,48 @@ def test_match_strings_cross_join_card_equals_cpu(dev):
     assert all(K.LAUNCHES[k] > 0 for k in DEFAULT_PATH), K.LAUNCHES
     cpu = sgt.match_strings(master, dupes, min_similarity=0.7, device="cpu")
     pd.testing.assert_frame_equal(card, cpu)
+
+
+@pytest.mark.parametrize("rule", ["centroid", "first"])
+def test_group_similar_strings_card_equals_cpu(dev, rule):
+    s = pd.Series(synthetic_company_names(3000, seed=15), name="name")
+    K.reset_launches()
+    card = sgt.group_similar_strings(s, group_rep=rule)
+    assert all(K.LAUNCHES[k] > 0 for k in DEFAULT_PATH), K.LAUNCHES
+    cpu = sgt.group_similar_strings(s, group_rep=rule, device="cpu")
+    pd.testing.assert_frame_equal(card, cpu, check_exact=True)
+    assert card["group_rep_name"].nunique() < len(s)
+
+
+def test_match_most_similar_with_ids_card_equals_cpu(dev):
+    master = pd.Series(synthetic_company_names(3000, seed=11), name="name")
+    dupes = pd.Series(synthetic_company_names(1500, seed=16) + list(master[:100]))
+    mid = pd.Series([f"m{i}" for i in range(len(master))])
+    did = pd.Series([f"d{i}" for i in range(len(dupes))])
+    K.reset_launches()
+    card = sgt.match_most_similar(master, dupes, mid, did, min_similarity=0.7)
+    assert all(K.LAUNCHES[k] > 0 for k in DEFAULT_PATH), K.LAUNCHES
+    cpu = sgt.match_most_similar(master, dupes, mid, did, min_similarity=0.7,
+                                 device="cpu")
+    pd.testing.assert_frame_equal(card, cpu, check_exact=True)
+    assert len(card) == len(dupes)
+
+
+def test_cc_labels_card_equals_native_union_find(dev):
+    from string_grouper_tpu_torch.native import get_scorer_lib
+    from string_grouper_tpu_torch.ops.connected_components import (
+        _cc_labels,
+        connected_components,
+    )
+
+    assert get_scorer_lib() is not None
+    rng = np.random.default_rng(3)
+    n = 100_000
+    chain = np.arange(50_000, 55_000, dtype=np.int64)  # one long path
+    a = np.r_[rng.integers(0, n, 80_000), chain[1:]].astype(np.int64)
+    b = np.r_[rng.integers(0, n, 80_000), chain[:-1]].astype(np.int64)
+    want = connected_components(a, b, n, dev)  # the native union-find
+    got = _cc_labels(torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev), n)
+    assert got.device.type == "cuda"
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
+    assert len(np.unique(want[chain])) == 1

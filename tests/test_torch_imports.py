@@ -61,6 +61,16 @@ def test_default_device_without_gpu_raises():
         sgt.match_strings(s)
     with pytest.raises(RuntimeError, match="no CUDA GPU"):
         sgt.StringGrouper(s, device="cuda")
+    for call in (
+        lambda: sgt.group_similar_strings(s),
+        lambda: sgt.match_most_similar(s, s[:2]),
+        lambda: sgt.compute_pairwise_similarities(s, s),
+        lambda: sgt.StringGrouper(s, device="cpu").update_options(device="cuda"),
+        lambda: sgt.StringGrouper(s, device="cpu").group_similar_strings(
+            s, device="cuda"),
+    ):
+        with pytest.raises(RuntimeError, match="no CUDA GPU"):
+            call()
 
 
 def test_bad_device_value_raises():
