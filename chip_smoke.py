@@ -75,6 +75,18 @@ Phases (any failure raises and the script exits non-zero without a result):
    the 663,000 names against 100,000 others: wall, phases, launches,
    100,000 output rows, and the verbatim check of
    ``check_verbatim_duplicates``.
+6. The mesh tier (``mesh=``: the host encode, then phase 1 per
+   (segment, shard) on each shard's device).  At 20,000 names
+   ``match_strings`` under ``make_mesh()`` (every visible GPU) and under
+   virtual meshes over one card at (1, 2), (2, 2), (1, 4) and (4, 1), each
+   equal to phase 4's card frame with ``p1_fused_closed2`` and
+   ``device_hash_codes`` launched; ``group_similar_strings`` on a (2, 2)
+   mesh, the float32 self-join on a (2, 2) mesh (the packed-slot hash: no
+   ``device_hash_codes`` launch) and ``compute_pairwise_similarities`` on
+   a (2, 4) mesh, each equal to phase 4's frame.  Then the 663,000-name
+   self-join on a (2, 2) virtual mesh: 4,558,752 rows, the frame of
+   phase 5's default run, wall, phases and launches printed, and
+   ``p1_fused_closed2`` launched once per (segment, shard).
 
 Without a CUDA GPU, or without the repository beside it, it exits non-zero
 and prints no result.
@@ -732,6 +744,8 @@ def main() -> int:
     from string_grouper_tpu_torch.ops import connected_components as CC
     from string_grouper_tpu_torch.utils.synthetic import synthetic_company_names
 
+    from string_grouper_tpu_torch.parallel import Mesh, make_mesh
+
     dev = torch.device("cuda")
     card = gpu_line()
     log(f"device: {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; "
@@ -795,6 +809,7 @@ def main() -> int:
     cpu_df = sgt.match_strings(s20, device="cpu")
     t_cpu = time.perf_counter() - t0
     pd.testing.assert_frame_equal(card_df, cpu_df)
+    frames4 = {"default": card_df}  # phase 4's card frames, for phase 6
     log(f"frames ({N_FRAME} names): card == cpu, {len(card_df)} rows; card "
         f"{t_card:.2f} s, cpu {t_cpu:.2f} s; launches {launches}")
     K.reset_launches()
@@ -822,6 +837,7 @@ def main() -> int:
         t_cpu = time.perf_counter() - t0
         pd.testing.assert_frame_equal(card_df, cpu_df)
         assert len(card_df) > 0
+        frames4[label] = card_df
         log(f"frames ({label}, {N_FRAME} names, packed-slot hash): card == "
             f"cpu, {len(card_df)} rows; card {t_card:.2f} s, cpu {t_cpu:.2f} s; "
             f"launches {launches}")
@@ -848,6 +864,7 @@ def main() -> int:
         t_cpu = time.perf_counter() - t0
         assert_same(card_out, cpu_out)
         assert len(card_out) == len(args[-1])
+        frames4[label] = card_out
         log(f"{label} ({N_FRAME} names): card == cpu, {len(card_out)} rows, "
             f"{card_out.iloc[:, 0].nunique()} distinct first-column values; "
             f"card {t_card:.2f} s, cpu {t_cpu:.2f} s; launches {launches}")
@@ -857,6 +874,7 @@ def main() -> int:
     t_card = time.perf_counter() - t0
     cpu_sims = sgt.compute_pairwise_similarities(s5, dupes5, device="cpu")
     assert_same(card_sims, cpu_sims)
+    frames4["pairwise"] = card_sims
     sims = card_sims.to_numpy()
     assert len(sims) == N_ORACLE and np.isfinite(sims).all()
     assert ((sims >= 0) & (sims <= 1 + 1e-12)).all()
@@ -978,6 +996,67 @@ def main() -> int:
     log("timings: " + json.dumps(
         {k: (round(v, 4) if isinstance(v, float) else v) for k, v in secs.items()}))
     del seen, nearest
+
+    # ---- phase 6: the mesh tier -------------------------------------------
+    stamp("phase 6: the mesh tier at 20,000 names")
+
+    def virtual(dp, mp):
+        """A (dp, mp) mesh whose slots all name the one card."""
+        return Mesh([[dev] * mp for _ in range(dp)])
+
+    def on_mesh(label, fn, args, kw, want, path):
+        K.reset_launches()
+        t0 = time.perf_counter()
+        got = fn(*args, **kw)
+        t_mesh = time.perf_counter() - t0
+        launches = dict(K.LAUNCHES)
+        assert all(launches[k] > 0 for k in path), f"{label}: {launches}"
+        assert_same(got, want)
+        log(f"{label}: equal to phase 4's card frame, {len(got)} rows; "
+            f"{t_mesh:.2f} s; launches {launches}")
+        return launches
+
+    for label, mesh in (("make_mesh()", make_mesh()), ("(1, 2)", virtual(1, 2)),
+                        ("(2, 2)", virtual(2, 2)), ("(1, 4)", virtual(1, 4)),
+                        ("(4, 1)", virtual(4, 1))):
+        on_mesh(f"match_strings, mesh {label} = {mesh.shape}", sgt.match_strings,
+                (s20,), dict(mesh=mesh), frames4["default"], DEFAULT_PATH)
+    on_mesh("group_similar_strings, mesh (2, 2)", sgt.group_similar_strings,
+            (s20,), dict(mesh=virtual(2, 2)),
+            frames4["group_similar_strings, centroid"], DEFAULT_PATH)
+    l_f32 = on_mesh("float32 self-join, mesh (2, 2)", sgt.match_strings, (s20,),
+                    dict(mesh=virtual(2, 2), tfidf_matrix_dtype=np.float32),
+                    frames4["float32 self-join"], PACKED_PATH)
+    assert l_f32["device_hash_codes"] == 0, f"float32 mesh launches {l_f32}"
+    on_mesh(f"compute_pairwise_similarities ({N_ORACLE} pairs), mesh (2, 4)",
+            sgt.compute_pairwise_similarities, (s5, dupes5),
+            dict(mesh=virtual(2, 4)), frames4["pairwise"], ())
+
+    stamp(f"phase 6: the {N_FULL}-name self-join on a (2, 2) mesh")
+    dp, mp = 2, 2
+    # 568,804 unique cleaned rows in super-chunks of 2 x 4,096 rows: 8
+    # segments, each one launch per shard.
+    want_p1 = 8 * dp * mp
+    K.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    grouper = sgt.StringGrouper(s_full, mesh=virtual(dp, mp)).fit()
+    frame = grouper.get_matches()
+    wall = time.perf_counter() - t0
+    l_mesh = dict(K.LAUNCHES)
+    secs = grouper.timings.seconds
+    log(f"full self-join (mesh (2, 2) on one card): n={N_FULL} wall {wall:.3f} s, "
+        f"encode {secs['encode']:.3f} s, match.p1_wait {secs['match.p1_wait']:.3f} s, match.esc_wait "
+        f"{secs['match.esc_wait']:.3f} s, {len(frame)} rows; launches {l_mesh} "
+        f"(p1_fused_closed2 expected {want_p1}: one per (segment, shard))")
+    log("timings: " + json.dumps(
+        {k: (round(v, 4) if isinstance(v, float) else v) for k, v in secs.items()}))
+    assert all(l_mesh[k] > 0 for k in DEFAULT_PATH), f"mesh 663k launches {l_mesh}"
+    assert l_mesh["p1_fused_closed2"] == want_p1, f"mesh 663k launches {l_mesh}"
+    assert len(frame) == ROWS_FULL, f"{len(frame)} output rows, expected {ROWS_FULL}"
+    pd.testing.assert_frame_equal(frame, out)
+    log("mesh self-join: frame equal to the default run's")
+    del grouper, frame
     stamp("all phases passed")
 
     src = "string_grouper_tpu_torch/csrc/{}.cu"
@@ -985,7 +1064,8 @@ def main() -> int:
     kernels = [
         dict(name="p1_fused_closed2", route="cuda",
              source=src.format("p1_fused_closed2"), replaces=pk.format(117),
-             launches=launches["p1_fused_closed2"], **res_p1),
+             launches=launches["p1_fused_closed2"] + l_mesh["p1_fused_closed2"],
+             **res_p1),
         dict(name="p1_fused_chain", route="cuda",
              source=src.format("p1_fused_chain"), replaces=pk.format(275),
              launches=chain_launches, **res_chain),
@@ -995,7 +1075,8 @@ def main() -> int:
         dict(name="device_hash_codes", route="cuda",
              source=src.format("device_hash_codes"),
              replaces="string_grouper_tpu/ops/matcher.py:398",
-             launches=launches["device_hash_codes"], **res_hash),
+             launches=launches["device_hash_codes"] + l_mesh["device_hash_codes"],
+             **res_hash),
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -2,7 +2,7 @@
 
 The option surface of ``string_grouper_tpu.config`` (itself the reference
 library's ``StringGrouperConfig``, string_grouper/string_grouper.py:17-202)
-with the JAX-only ``mesh``/``multihost`` knobs replaced by ``device``.
+with ``device`` added and without the multi-host tier's ``multihost``.
 """
 
 from __future__ import annotations
@@ -67,6 +67,11 @@ class StringGrouperConfig(NamedTuple):
     :param right_tile: right-side columns per phase-1 logical tile.
     :param device: ``"cuda"`` (default; raises when no GPU is present) or
         ``"cpu"`` (the kernels' plain PyTorch versions run instead).
+    :param mesh: optional ``string_grouper_tpu_torch.parallel.Mesh`` with
+        axes ('dp', 'mp') (see
+        :func:`string_grouper_tpu_torch.parallel.make_mesh`), its slots
+        devices of ``device``'s type; when set, encoding and matching run
+        sharded across the mesh devices.
     """
 
     ngram_size: int = DEFAULT_NGRAM_SIZE
@@ -88,3 +93,4 @@ class StringGrouperConfig(NamedTuple):
     left_chunk: int = DEFAULT_LEFT_CHUNK
     right_tile: int = DEFAULT_RIGHT_TILE
     device: str = DEFAULT_DEVICE
+    mesh: Optional[object] = None

@@ -4,10 +4,11 @@ API-compatible with ``string_grouper_tpu.engine.StringGrouper`` (itself the
 reference class, string_grouper/string_grouper.py:224-1010): the same
 constructor, lifecycle (``__init__ -> fit -> get_matches / get_groups``),
 data and option resets, interactive ``add_match`` / ``remove_match``
-editing, and method twins of the four high-level functions; the JAX-only
-mesh and multi-host tiers are not part of it.  Strings are encoded into ELL
-TF-IDF on the host (corpus/), matched on the card by the two-phase matcher
-(ops/matcher.py, CUDA kernels in csrc/), grouped by connected components
+editing, and method twins of the four high-level functions, and the
+``mesh`` option's sharded tier (parallel/); the multi-host tiers are not
+part of it.  Strings are encoded into ELL TF-IDF on the host (corpus/),
+matched on the card by the two-phase matcher (ops/matcher.py, CUDA kernels
+in csrc/), grouped by connected components
 (ops/connected_components.py) and assembled into the reference's DataFrame
 layout (frame.py).
 """
@@ -33,6 +34,7 @@ from .ops.matcher import (
     topn_cosine_matches,
 )
 from .ops.rescore import row_dot_fp64
+from .parallel.distributed import distributed_topn_cosine_matches, validate_mesh
 from .utils.profiling import PhaseTimings
 from .validation import (
     StringGrouperNotFitException,
@@ -139,6 +141,7 @@ class StringGrouper:
         # the method twins move the next fit; without a GPU the default
         # raises here as it does in __init__.
         self._device = resolve_device(self._config.device)
+        validate_mesh(self._config.mesh, self._device)
         # Rebuild the encoder against the NEW config: options set via
         # update_options / method-twin kwargs (ngram_size, regex,
         # ignore_case, normalize_to_ascii, tfidf_matrix_dtype) must reach
@@ -220,7 +223,8 @@ class StringGrouper:
         # on the engine, so a refit never holds the last fit's card memory.
         with self.timings.phase("encode"):
             # defer_fill: the ELL value fill runs on a worker thread while
-            # the payload uploads and the device hash builds.
+            # the payload uploads and the device hash builds.  A mesh fit
+            # encodes the same way: one controller holds the whole corpus.
             master_ell, dupes_ell = self._encoder.fit_transform_pair(
                 self._master,
                 None if is_self else self._duplicates,
@@ -228,28 +232,27 @@ class StringGrouper:
             )
             n_right = len(self._right_Series)
             max_n = n_right if self._max_n_matches is None else self._max_n_matches
+            # The hash builds where phase 1 reads it: on the device, or on
+            # the mesh's first slot, whence the mesh tier moves its shards.
+            hash_dev = self._device if cfg.mesh is None else cfg.mesh.devices[0, 0]
             # Skipped when the matcher will pipeline column-chunked uploads
-            # instead (opt-in, large self-joins): a full upload queued
-            # ahead of the chunks would serialize the very head the
-            # pipeline overlaps with the scan.
-            if not chunked_p1_will_engage(
+            # instead (opt-in, large single-device self-joins): a full
+            # upload queued ahead of the chunks would serialize the very
+            # head the pipeline overlaps with the scan.
+            if cfg.mesh is not None or not chunked_p1_will_engage(
                 master_ell, is_self, cfg.min_similarity, max_n, cfg.hash_dim,
                 cfg.left_chunk, cfg.right_tile, self._device,
             ):
-                prefetch_corpus_hash(master_ell, cfg.hash_dim, self._device)
+                prefetch_corpus_hash(master_ell, cfg.hash_dim, hash_dev)
                 if not is_self:
-                    prefetch_corpus_hash(dupes_ell, cfg.hash_dim, self._device)
+                    prefetch_corpus_hash(dupes_ell, cfg.hash_dim, hash_dev)
 
         with self.timings.phase("match"):
             left_codes = duplicate_codes(self._master, master_ell)
             right_codes = None
             if not is_self:
                 right_codes = duplicate_codes(self._duplicates, dupes_ell)
-            pairs = topn_cosine_matches(
-                master_ell,
-                None if is_self else dupes_ell,
-                cfg.min_similarity,
-                max_n,
+            knobs = dict(
                 force_symmetries=cfg.force_symmetries,
                 hash_dim=cfg.hash_dim,
                 left_chunk=cfg.left_chunk,
@@ -257,8 +260,13 @@ class StringGrouper:
                 score_dtype=cfg.tfidf_matrix_dtype,
                 left_codes=left_codes,
                 right_codes=right_codes,
-                device=self._device,
             )
+            args = (master_ell, None if is_self else dupes_ell,
+                    cfg.min_similarity, max_n)
+            if cfg.mesh is not None:
+                pairs = distributed_topn_cosine_matches(*args, cfg.mesh, **knobs)
+            else:
+                pairs = topn_cosine_matches(*args, device=self._device, **knobs)
         for k, v in (pairs.stats or {}).items():
             self.timings.seconds[f"match.{k}"] = v
         self._true_max_n_matches = pairs.true_max_n_matches

@@ -3,10 +3,13 @@ PyTorch version (the counterpart of ``string_grouper_tpu.ops.
 pallas_kernels``).
 
 Every wrapper launches its kernel for CUDA tensors -- or raises: nothing
-falls back to the plain version on the card.  Tensors on the CPU take the
+falls back to the plain version on the card.  The launch (and the TMA
+descriptors it encodes) runs with the tensors' device made current, so a
+shard on ``cuda:k`` launches on ``cuda:k``.  Tensors on the CPU take the
 plain version, which is what the CPU tests run.  ``LAUNCHES`` counts each
 wrapper's kernel launches (and nothing else), so a run can show that the
-main path went through the kernels.
+main path went through the kernels; ``LAUNCHES_BY_DEVICE`` counts the same
+launches per (wrapper, device), so a mesh run can show where each ran.
 
 * ``p1_fused_closed2`` (csrc/p1_fused_closed2.cu) replaces the Pallas kernel
   of the same name (string_grouper_tpu/ops/pallas_kernels.py:117-179).
@@ -23,6 +26,7 @@ main path went through the kernels.
 
 from __future__ import annotations
 
+from collections import Counter
 from typing import Dict, Optional
 
 import torch
@@ -34,11 +38,20 @@ _NEG = float("-inf")
 
 #: kernel launches per wrapper since the last ``reset_launches()``
 LAUNCHES: Dict[str, int] = {name: 0 for name in _build.KERNELS}
+#: the same launches per (wrapper, device), e.g. ("p1_fused_closed2", "cuda:1")
+LAUNCHES_BY_DEVICE: Counter = Counter()
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    LAUNCHES_BY_DEVICE.clear()
+
+
+def _launched(name: str, dev: torch.device) -> None:
+    """Count one launch of ``name``'s kernel on ``dev``."""
+    LAUNCHES[name] += 1
+    LAUNCHES_BY_DEVICE[(name, str(dev))] += 1
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -207,13 +220,14 @@ def p1_fused_closed2(a_hash: torch.Tensor, b_hash: torch.Tensor,
     tmax = torch.empty(m, dtype=torch.int32, device=dev)
     bound = torch.empty(m, dtype=torch.float32, device=dev)
     vbuf = torch.empty((m, cand_c), dtype=torch.float32, device=dev)
-    err = lib.p1_fused_closed2(
-        a_hash.data_ptr(), b_hash.data_ptr(), float(thr_eff), m, n, d, tile,
-        cand_c, ship.data_ptr(), counts.data_ptr(), tmax.data_ptr(),
-        bound.data_ptr(), vbuf.data_ptr(), _stream(a_hash),
-    )
+    with torch.cuda.device(dev):
+        err = lib.p1_fused_closed2(
+            a_hash.data_ptr(), b_hash.data_ptr(), float(thr_eff), m, n, d,
+            tile, cand_c, ship.data_ptr(), counts.data_ptr(), tmax.data_ptr(),
+            bound.data_ptr(), vbuf.data_ptr(), _stream(a_hash),
+        )
     _build.check("p1_fused_closed2", err)
-    LAUNCHES["p1_fused_closed2"] += 1
+    _launched("p1_fused_closed2", dev)
     return ship, counts, tmax, bound, tmax.max()
 
 
@@ -257,14 +271,16 @@ def p1_fused_chain(a_hash: torch.Tensor, b_chunk: torch.Tensor,
     counts = torch.empty(m, dtype=torch.int32, device=dev)
     tmax = torch.empty(m, dtype=torch.int32, device=dev)
     bound = torch.empty(m, dtype=torch.float32, device=dev)
-    err = lib.p1_fused_chain(
-        a_hash.data_ptr(), b_chunk.data_ptr(), float(thr_eff), int(col_off),
-        m, n, d, tile, cand_c, v.data_ptr(), c.data_ptr(), meta.data_ptr(),
-        tb.data_ptr(), ship.data_ptr(), counts.data_ptr(), tmax.data_ptr(),
-        bound.data_ptr(), _stream(a_hash),
-    )
+    with torch.cuda.device(dev):
+        err = lib.p1_fused_chain(
+            a_hash.data_ptr(), b_chunk.data_ptr(), float(thr_eff),
+            int(col_off), m, n, d, tile, cand_c, v.data_ptr(), c.data_ptr(),
+            meta.data_ptr(), tb.data_ptr(), ship.data_ptr(),
+            counts.data_ptr(), tmax.data_ptr(), bound.data_ptr(),
+            _stream(a_hash),
+        )
     _build.check("p1_fused_chain", err)
-    LAUNCHES["p1_fused_chain"] += 1
+    _launched("p1_fused_chain", dev)
     return ship, counts, tmax, bound, tmax.max(), state
 
 
@@ -448,14 +464,15 @@ def p1_tri_fused(a_seg: torch.Tensor, b_hash: torch.Tensor,
     size = (seg_rows // 128) * n_fut
     st_i = torch.empty((3, size), dtype=torch.int32, device=dev)
     st_f = torch.empty((2, size), dtype=torch.float32, device=dev)
-    err = lib.p1_tri_fused(
-        a_seg.data_ptr(), b_hash.data_ptr(), float(thr_eff), int(j0),
-        seg_rows, n_pad, d, tile, cand_c, bm, rv.data_ptr(), rc.data_ptr(),
-        rmeta.data_ptr(), fpack.data_ptr(), st_i.data_ptr(), st_f.data_ptr(),
-        _stream(a_seg),
-    )
+    with torch.cuda.device(dev):
+        err = lib.p1_tri_fused(
+            a_seg.data_ptr(), b_hash.data_ptr(), float(thr_eff), int(j0),
+            seg_rows, n_pad, d, tile, cand_c, bm, rv.data_ptr(),
+            rc.data_ptr(), rmeta.data_ptr(), fpack.data_ptr(),
+            st_i.data_ptr(), st_f.data_ptr(), _stream(a_seg),
+        )
     _build.check("p1_tri_fused", err)
-    LAUNCHES["p1_tri_fused"] += 1
+    _launched("p1_tri_fused", dev)
     return rv, rc, rmeta, fpack
 
 
@@ -541,11 +558,12 @@ def device_hash_codes(codes: torch.Tensor, inv_norm: torch.Tensor,
     if n == 0:
         return out
     lib = _build.load("device_hash_codes")
-    err = lib.device_hash_codes(
-        codes.data_ptr(), int(packed), stride, w, inv_norm.data_ptr(),
-        table_id.data_ptr(), idf.data_ptr(), n, dim, base, ngram,
-        out.data_ptr(), _stream(codes),
-    )
+    with torch.cuda.device(codes.device):
+        err = lib.device_hash_codes(
+            codes.data_ptr(), int(packed), stride, w, inv_norm.data_ptr(),
+            table_id.data_ptr(), idf.data_ptr(), n, dim, base, ngram,
+            out.data_ptr(), _stream(codes),
+        )
     _build.check("device_hash_codes", err)
-    LAUNCHES["device_hash_codes"] += 1
+    _launched("device_hash_codes", codes.device)
     return out

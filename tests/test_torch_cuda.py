@@ -16,7 +16,9 @@ packed-slot torch op ``_device_hash`` must equal itself on the CPU bitwise,
 and payload-less corpora (float32, a custom regex) must give the CPU's frame
 on the fused kernel with no ``device_hash_codes`` launch.  The grouping and
 nearest-match entry points must give the CPU's frames, and the torch op
-``_cc_labels`` on the card the native union-find's labels, bitwise.
+``_cc_labels`` on the card the native union-find's labels, bitwise.  Under
+``mesh=`` (virtual meshes over the card, and ``make_mesh()``) the fits
+must give the CPU's frames with the kernels launched.
 """
 
 import numpy as np
@@ -360,3 +362,49 @@ def test_cc_labels_card_equals_native_union_find(dev):
     assert got.device.type == "cuda"
     np.testing.assert_array_equal(got.cpu().numpy(), want)
     assert len(np.unique(want[chain])) == 1
+
+
+def _virtual_mesh(dev, dp, mp):
+    from string_grouper_tpu_torch.parallel import Mesh
+
+    return Mesh([[dev] * mp for _ in range(dp)])
+
+
+def test_mesh_match_strings_card_equals_cpu(dev):
+    """A (2, 2) mesh over the one card: the host encode, then
+    ``p1_fused_closed2`` per (segment, shard); the CPU's frame."""
+    s = pd.Series(synthetic_company_names(4000, seed=5))
+    K.reset_launches()
+    card = sgt.match_strings(s, mesh=_virtual_mesh(dev, 2, 2))
+    assert all(K.LAUNCHES[k] > 0 for k in DEFAULT_PATH), K.LAUNCHES
+    pd.testing.assert_frame_equal(card, sgt.match_strings(s, device="cpu"))
+
+
+def test_mesh_cross_join_and_groups_card_equals_cpu(dev):
+    from string_grouper_tpu_torch.parallel import make_mesh
+
+    master = pd.Series(synthetic_company_names(3000, seed=11), name="name")
+    dupes = pd.Series(synthetic_company_names(2000, seed=12))
+    mesh = make_mesh()
+    K.reset_launches()
+    card = sgt.match_strings(master, dupes, min_similarity=0.7, mesh=mesh)
+    assert all(K.LAUNCHES[k] > 0 for k in DEFAULT_PATH), K.LAUNCHES
+    # every GPU of the mesh launched its shards' scans, and only those
+    on = {d for (k, d) in K.LAUNCHES_BY_DEVICE if k == "p1_fused_closed2"}
+    assert on == {str(d) for d in mesh.devices.flat}, K.LAUNCHES_BY_DEVICE
+    cpu = sgt.match_strings(master, dupes, min_similarity=0.7, device="cpu")
+    pd.testing.assert_frame_equal(card, cpu)
+    groups = sgt.group_similar_strings(master, mesh=_virtual_mesh(dev, 1, 4))
+    pd.testing.assert_frame_equal(
+        groups, sgt.group_similar_strings(master, device="cpu"), check_exact=True)
+
+
+def test_mesh_float32_card_equals_cpu(dev):
+    """The packed-slot hash under a (2, 2) mesh: no ``device_hash_codes``."""
+    s = pd.Series(synthetic_company_names(3000, seed=13))
+    kw = dict(tfidf_matrix_dtype=np.float32)
+    K.reset_launches()
+    card = sgt.match_strings(s, mesh=_virtual_mesh(dev, 2, 2), **kw)
+    assert K.LAUNCHES["p1_fused_closed2"] > 0, K.LAUNCHES
+    assert K.LAUNCHES["device_hash_codes"] == 0, K.LAUNCHES
+    pd.testing.assert_frame_equal(card, sgt.match_strings(s, device="cpu", **kw))

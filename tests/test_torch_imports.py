@@ -32,6 +32,7 @@ def _imported_roots(path: Path):
 def test_import_leaves_jax_and_jax_package_out():
     code = (
         "import sys, string_grouper_tpu_torch, string_grouper_tpu_torch.ops.kernels\n"
+        "import string_grouper_tpu_torch.parallel\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'string_grouper_tpu')]\n"
         "print(repr(bad))\n"
