@@ -86,19 +86,44 @@ Phases (any failure raises and the script exits non-zero without a result):
    a (2, 4) mesh, each equal to phase 4's frame.  Then the 663,000-name
    self-join on a (2, 2) virtual mesh: 4,558,752 rows, the frame of
    phase 5's default run, wall, phases and launches printed, and
-   ``p1_fused_closed2`` launched once per (segment, shard).
+   ``p1_fused_closed2`` launched once per (segment, shard); the mesh's
+   collectives (``_dist_match`` less its ``_local_block`` launches, and
+   ``_sort_compact``) timed by CUDA events beside their bytes bound.
+7. The multi-process tiers (``multihost=``): two ``torch.distributed``
+   ranks, fresh processes of this script (``--rank``), joined by gloo at
+   tcp://127.0.0.1:<free port>, both on ``cuda:0``, each with
+   ``number_of_processes`` = (cores - 1) // 2.  At 20,000 names, the
+   replicated self-join (auto-selected from the group), the sharded
+   self-join, a cross-join with ids against 5,000 names,
+   ``group_similar_strings``, ``match_most_similar`` and the float32
+   self-join: each rank's frame equal to the single-process card frame of
+   the same call (phase 4's, or one made here).  Then the 663,000-name
+   self-join on the replicated tier (4,558,752 rows, phase 5's default
+   frame on both ranks, ``p1_fused_closed2`` and ``device_hash_codes``
+   launched on each) and ``synthetic_company_names(100_000)`` on the
+   sharded tier (the single-process card frame; stages, escalated rows,
+   the ladder's rows and walls, the memory keys and launches printed; the
+   memory bounds of tests/mh_engine_worker.py asserted).  Its per-rank
+   scan (``_local_block``, CUDA events) and exchange (``_exchange_rows``,
+   host clock) are timed beside their bounds.  A rank that fails or
+   overruns its limit fails the phase.
 
 Without a CUDA GPU, or without the repository beside it, it exits non-zero
-and prints no result.
+and prints no result.  ``python chip_smoke.py --rank R WORLD PORT DIR`` is
+phase 7's rank R (started by the script itself).
 """
 
 import json
 import os
 import re
+import shutil
+import socket
 import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from datetime import timedelta
+from pathlib import Path
 
 import numpy as np
 import pandas as pd
@@ -133,6 +158,14 @@ N_HASH_CPU = 20_000
 # Published H100 SXM peaks (dense bf16 tensor-core rate, HBM3 bandwidth).
 PEAK_BF16 = 989e12
 PEAK_BYTES = 3.35e12
+# Its host link, PCIe Gen5 x16, one direction (published): the floor of
+# what a rank's exchange moves from the card to the host.
+PEAK_PCIE = 64e9
+# Phase 7: ranks on the one card, the sharded run's corpus, and the wall
+# limit of the ranks together.
+WORLD = 2
+N_SHARDED = 100_000
+RANK_LIMIT_S = 480
 
 
 START = time.perf_counter()
@@ -731,6 +764,290 @@ def check_verbatim_duplicates(master, dupes, matches):
     return int(verbatim.sum()), int(verbatim.sum() - len(short)), len(short)
 
 
+# ------------------------------------------------------------------ phase 6
+def _events():
+    return (torch.cuda.Event(enable_timing=True),
+            torch.cuda.Event(enable_timing=True))
+
+
+def _nbytes(out) -> int:
+    return sum(t.nbytes for t in out if torch.is_tensor(t))
+
+
+def spy_mesh_collectives(D):
+    """Wrap the mesh tier's ``_dist_match``, ``_local_block`` and
+    ``_sort_compact`` (module attributes of ``D``, looked up at each call)
+    with CUDA events.  Returns ``(restore, report)``: ``report()`` gives the
+    collectives' device time -- each ``_dist_match`` less the
+    ``_local_block`` launches inside it (the moves onto ``devices[0, 0]``,
+    the width ``cat``, the ``amax`` and the row reorder) -- and
+    ``_sort_compact``'s, each beside its bytes (inputs read once, outputs
+    written once)."""
+    names = ("_dist_match", "_local_block", "_sort_compact")
+    real = {n: getattr(D, n) for n in names}
+    blocks, dists, sorts = [], [], []
+
+    def local_block(*a, **k):
+        e0, e1 = _events()
+        e0.record()
+        out = real["_local_block"](*a, **k)
+        e1.record()
+        blocks.append((e0, e1, _nbytes(out)))
+        return out
+
+    def dist_match(*a, **k):
+        e0, e1 = _events()
+        n0 = len(blocks)
+        e0.record()
+        out = real["_dist_match"](*a, **k)
+        e1.record()
+        dists.append((e0, e1, blocks[n0:], _nbytes(out)))
+        return out
+
+    def sort_compact(cols, budget):
+        e0, e1 = _events()
+        e0.record()
+        out = real["_sort_compact"](cols, budget)
+        e1.record()
+        sorts.append((e0, e1, cols.nbytes + _nbytes(out)))
+        return out
+
+    for n, f in zip(names, (dist_match, local_block, sort_compact)):
+        setattr(D, n, f)
+
+    def restore():
+        for n in names:
+            setattr(D, n, real[n])
+
+    def report():
+        torch.cuda.synchronize()
+        coll_ms = sum(e0.elapsed_time(e1) - sum(b0.elapsed_time(b1) for b0, b1, _ in bl)
+                      for e0, e1, bl, _ in dists)
+        coll_bytes = sum(sum(nb for _, _, nb in bl) + out_b for _, _, bl, out_b in dists)
+        sort_ms = sum(e0.elapsed_time(e1) for e0, e1, _ in sorts)
+        sort_bytes = sum(nb for _, _, nb in sorts)
+        return dict(
+            dist_calls=len(dists), collectives_ms=coll_ms, collectives_bytes=coll_bytes,
+            collectives_bound_ms=coll_bytes / PEAK_BYTES * 1e3,
+            sort_calls=len(sorts), sort_compact_ms=sort_ms, sort_bytes=sort_bytes,
+            sort_bound_ms=sort_bytes / PEAK_BYTES * 1e3,
+        )
+
+    return restore, report
+
+
+# ------------------------------------------------------------------ phase 7
+def spy_rank_scan(MH):
+    """Wrap the multi-process tiers' ``_local_block`` (CUDA events) and
+    ``_exchange_rows`` (host clock, after a synchronize so the scan's own
+    device time stays out of it).  Returns ``(restore, report)``;
+    ``report()`` gives each scan pass beside its operations bound and the
+    exchanges beside their bytes bound (what the card must send to the
+    host, at the host link's rate), and the first pass's ``torch.mm`` of
+    the same operands as its library yardstick."""
+    real_block, real_exchange = MH._local_block, MH._exchange_rows
+    scans, exchanges, first = [], [], []
+
+    def local_block(a_rows, b_loc, *a, **k):
+        e0, e1 = _events()
+        e0.record()
+        out = real_block(a_rows, b_loc, *a, **k)
+        e1.record()
+        if not first:
+            first.extend((a_rows, b_loc))
+        scans.append(dict(rows=a_rows.shape[0], cols=b_loc.shape[0], d=b_loc.shape[1],
+                          k_tile=k["k_tile"], cand_c=k["cand_c"], fused=k["fused"],
+                          ev=(e0, e1)))
+        return out
+
+    def exchange(cols, bound, tmax, starts, counts):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_exchange(cols, bound, tmax, starts, counts)
+        exchanges.append(dict(s=time.perf_counter() - t0,
+                              bytes=cols.nbytes + bound.nbytes + tmax.nbytes,
+                              rows_out=len(out[0])))
+        return out
+
+    MH._local_block, MH._exchange_rows = local_block, exchange
+
+    def restore():
+        MH._local_block, MH._exchange_rows = real_block, real_exchange
+
+    def report():
+        torch.cuda.synchronize()
+        passes = []
+        for sc in scans:
+            e0, e1 = sc.pop("ev")
+            ops = 2 * sc["rows"] * sc["cols"] * sc["d"]
+            passes.append(dict(sc, ms=e0.elapsed_time(e1), bound_ms=ops / PEAK_BF16 * 1e3))
+        a, b = first
+        lib_ms = cuda_ms(lambda: torch.mm(a, b.T), 3)
+        first.clear()
+        torch.cuda.empty_cache()
+        ex_bytes = sum(e["bytes"] for e in exchanges)
+        return dict(
+            scan_passes=passes, first_scan_ms=passes[0]["ms"],
+            first_scan_bound_ms=passes[0]["bound_ms"], first_scan_library_ms=lib_ms,
+            all_scans_ms=sum(p["ms"] for p in passes),
+            all_scans_bound_ms=sum(p["bound_ms"] for p in passes),
+            exchanges=len(exchanges), exchange_ms=sum(e["s"] for e in exchanges) * 1e3,
+            exchange_bytes=ex_bytes, exchange_bound_ms=ex_bytes / PEAK_PCIE * 1e3,
+        )
+
+    return restore, report
+
+
+def _free_port() -> str:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return str(sock.getsockname()[1])
+
+
+def run_ranks(out_dir: Path) -> list:
+    """Phase 7's ranks: WORLD fresh processes of this script, to their end
+    within RANK_LIMIT_S together.  A rank that fails or overruns fails the
+    phase (every rank is killed first).  Returns their result records."""
+    port = _free_port()
+    env = dict(os.environ, GLOO_SOCKET_IFNAME="lo")
+    logs = [open(out_dir / f"rank_{r}.log", "w") for r in range(WORLD)]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--rank", str(r), str(WORLD),
+         port, str(out_dir)], env=env, stdout=logs[r], stderr=subprocess.STDOUT)
+        for r in range(WORLD)]
+    deadline = time.perf_counter() + RANK_LIMIT_S
+    failed = None
+    try:
+        for r, p in enumerate(procs):
+            try:
+                rc = p.wait(timeout=max(deadline - time.perf_counter(), 1))
+            except subprocess.TimeoutExpired:
+                failed = f"rank {r} overran the phase's {RANK_LIMIT_S} s limit"
+                break
+            if rc != 0:
+                failed = f"rank {r} exited with {rc}"
+                break
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    for r in range(WORLD):
+        for line in (out_dir / f"rank_{r}.log").read_text().splitlines():
+            log(f"  [rank {r}] {line}")
+    if failed:
+        raise RuntimeError(f"phase 7: {failed}")
+    return [json.loads((out_dir / f"rank_{r}.json").read_text()) for r in range(WORLD)]
+
+
+def rank_main(args) -> int:
+    """One rank of phase 7 (``--rank R WORLD PORT DIR``): joins the gloo
+    group, runs the phase's calls on ``cuda:0`` and holds each frame
+    against the parent's single-process frame pickled in DIR; writes its
+    record to DIR/rank_R.json."""
+    rank, world, port, out_dir = int(args[0]), int(args[1]), args[2], Path(args[3])
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA GPU visible", file=sys.stderr)
+        return 2
+    import torch.distributed as dist
+
+    import string_grouper_tpu_torch as sgt
+    from string_grouper_tpu_torch.ops import kernels as K
+    from string_grouper_tpu_torch.parallel import multihost as MH
+    from string_grouper_tpu_torch.utils.synthetic import synthetic_company_names
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=world, timeout=timedelta(seconds=300))
+    threads = max(1, ((os.cpu_count() or 2) - 1) // world)
+    log(f"rank {rank} of {world} on {torch.cuda.get_device_name(0)} (cuda:0), "
+        f"number_of_processes={threads}")
+    rec = dict(rank=rank, launches={}, stages={})
+
+    def check(label, got, want, path, wall, sg=None):
+        launches = dict(K.LAUNCHES)
+        assert_same(got, pd.read_pickle(out_dir / f"want_{want}.pkl"))
+        assert all(launches[k] > 0 for k in path), f"{label}: launches {launches}"
+        if path == PACKED_PATH:
+            assert launches["device_hash_codes"] == 0, f"{label}: launches {launches}"
+        rec["launches"][label] = launches
+        tier = ""
+        if sg is not None:
+            rec["stages"][label] = {k: v for k, v in sg.timings.seconds.items()
+                                    if k.startswith("match.mh_")}
+            tier = f", tier {sg.timings.labels['multihost_tier']}"
+        log(f"{label}: equal to the single-process card frame, {len(got)} rows; "
+            f"{wall:.3f} s{tier}; launches {launches}")
+
+    def fit(series, other=None, **kw):
+        K.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sg = sgt.StringGrouper(series, other, number_of_processes=threads, **kw).fit()
+        frame = sg.get_matches()
+        return frame, sg, time.perf_counter() - t0
+
+    def call(fn, *args, **kw):
+        K.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, number_of_processes=threads, **kw)
+        return out, time.perf_counter() - t0
+
+    try:
+        s20 = pd.Series(synthetic_company_names(N_FRAME))
+        dupes5 = pd.Series(synthetic_company_names(N_ORACLE, seed=7))
+        ids20 = pd.Series([f"m{i}" for i in range(N_FRAME)])
+        ids5 = pd.Series([f"d{i}" for i in range(N_ORACLE)])
+        frame, sg, wall = fit(s20)
+        assert sg.timings.labels["multihost_tier"] == "replicated"
+        check(f"self-join {N_FRAME} (auto)", frame, "self", DEFAULT_PATH, wall, sg)
+        frame, sg, wall = fit(s20, multihost="sharded")
+        check(f"self-join {N_FRAME} sharded", frame, "self", DEFAULT_PATH, wall, sg)
+        out, wall = call(sgt.match_strings, s20, dupes5, ids20, ids5)
+        check(f"cross-join with ids {N_FRAME} x {N_ORACLE}", out, "cross_ids",
+              DEFAULT_PATH, wall)
+        out, wall = call(sgt.group_similar_strings, s20)
+        check(f"group_similar_strings {N_FRAME}", out, "groups", DEFAULT_PATH, wall)
+        out, wall = call(sgt.match_most_similar, s20, dupes5)
+        check(f"match_most_similar {N_FRAME} x {N_ORACLE}", out, "nearest",
+              DEFAULT_PATH, wall)
+        frame, sg, wall = fit(s20, tfidf_matrix_dtype=np.float32)
+        check(f"float32 self-join {N_FRAME}", frame, "f32", PACKED_PATH, wall, sg)
+
+        s_full = pd.Series(synthetic_company_names(N_FULL))
+        frame, sg, wall = fit(s_full)
+        assert sg.timings.labels["multihost_tier"] == "replicated"
+        assert len(frame) == ROWS_FULL, f"{len(frame)} output rows, expected {ROWS_FULL}"
+        check(f"self-join {N_FULL} replicated", frame, "full", DEFAULT_PATH, wall, sg)
+        log("stages: " + json.dumps(rec["stages"][f"self-join {N_FULL} replicated"]))
+        del frame, sg, s_full
+
+        s_sh = pd.Series(synthetic_company_names(N_SHARDED))
+        restore, report = spy_rank_scan(MH)
+        try:
+            frame, sg, wall = fit(s_sh, multihost="sharded")
+        finally:
+            restore()
+        label = f"self-join {N_SHARDED} sharded"
+        check(label, frame, "sharded_100k", DEFAULT_PATH, wall, sg)
+        st = rec["stages"][label]
+        local_b = st["match.mh_mem_local_ell_bytes"]
+        full_b = st["match.mh_mem_replicated_ell_bytes"]
+        visit_b = st["match.mh_mem_peak_visit_bytes"]
+        assert local_b * world <= full_b * 1.5, (local_b, full_b, world)
+        assert visit_b <= full_b * 1.5 / world + 1, (visit_b, full_b, world)
+        log("stages: " + json.dumps(st))
+        rec["scan"] = report()
+        log("scan and exchange: " + json.dumps(rec["scan"]))
+    finally:
+        dist.destroy_process_group()
+    (out_dir / f"rank_{rank}.json").write_text(json.dumps(rec))
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA GPU visible", file=sys.stderr)
@@ -745,6 +1062,7 @@ def main() -> int:
     from string_grouper_tpu_torch.utils.synthetic import synthetic_company_names
 
     from string_grouper_tpu_torch.parallel import Mesh, make_mesh
+    from string_grouper_tpu_torch.parallel import distributed as D
 
     dev = torch.device("cuda")
     card = gpu_line()
@@ -1037,11 +1355,15 @@ def main() -> int:
     # 568,804 unique cleaned rows in super-chunks of 2 x 4,096 rows: 8
     # segments, each one launch per shard.
     want_p1 = 8 * dp * mp
+    restore, coll_report = spy_mesh_collectives(D)
     K.reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    grouper = sgt.StringGrouper(s_full, mesh=virtual(dp, mp)).fit()
-    frame = grouper.get_matches()
+    try:
+        grouper = sgt.StringGrouper(s_full, mesh=virtual(dp, mp)).fit()
+        frame = grouper.get_matches()
+    finally:
+        restore()
     wall = time.perf_counter() - t0
     l_mesh = dict(K.LAUNCHES)
     secs = grouper.timings.seconds
@@ -1056,7 +1378,54 @@ def main() -> int:
     assert len(frame) == ROWS_FULL, f"{len(frame)} output rows, expected {ROWS_FULL}"
     pd.testing.assert_frame_equal(frame, out)
     log("mesh self-join: frame equal to the default run's")
+    log("mesh collectives (CUDA events): " + json.dumps(coll_report()))
     del grouper, frame
+
+    # ---- phase 7: two torch.distributed ranks on the one card --------------
+    stamp(f"phase 7: {WORLD} ranks on one card (multihost=)")
+    p7 = Path(__file__).resolve().parent / "build" / "chip_smoke_phase7"
+    shutil.rmtree(p7, ignore_errors=True)
+    p7.mkdir(parents=True)
+    ids20 = pd.Series([f"m{i}" for i in range(N_FRAME)])
+    ids5 = pd.Series([f"d{i}" for i in range(N_ORACLE)])
+    t0 = time.perf_counter()
+    want_cross = sgt.match_strings(s20, dupes5, ids20, ids5)
+    s_sh = pd.Series(synthetic_company_names(N_SHARDED))
+    want_sh = sgt.match_strings(s_sh)
+    log(f"single-process card frames for phase 7: cross-join with ids "
+        f"{len(want_cross)} rows, {N_SHARDED} names {len(want_sh)} rows "
+        f"({time.perf_counter() - t0:.2f} s)")
+    wants = {"self": frames4["default"], "cross_ids": want_cross,
+             "groups": frames4["group_similar_strings, centroid"],
+             "nearest": frames4[f"match_most_similar vs {N_ORACLE}"],
+             "f32": frames4["float32 self-join"], "full": out,
+             "sharded_100k": want_sh}
+    t0 = time.perf_counter()
+    for k, v in wants.items():
+        v.to_pickle(p7 / f"want_{k}.pkl")
+    log(f"frames pickled for the ranks in {time.perf_counter() - t0:.2f} s")
+    del wants, want_cross, want_sh, out
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    recs = run_ranks(p7)
+    log(f"{WORLD} ranks: {time.perf_counter() - t0:.1f} s wall, both passed")
+    for rec in recs:
+        for label, launches in rec["launches"].items():
+            assert launches["p1_fused_closed2"] > 0, (rec["rank"], label, launches)
+        full = rec["launches"][f"self-join {N_FULL} replicated"]
+        assert full["device_hash_codes"] > 0, (rec["rank"], full)
+        sc = rec["scan"]
+        log(f"kernel row (_make_phase1_scan: _local_block + _exchange_rows), rank "
+            f"{rec['rank']}: " + json.dumps(dict(
+                first_scan_ms=sc["first_scan_ms"], bound_ms=sc["first_scan_bound_ms"],
+                bound_by="operations", library_ms=sc["first_scan_library_ms"],
+                launches_p1_fused_closed2=rec["launches"][
+                    f"self-join {N_SHARDED} sharded"]["p1_fused_closed2"],
+                all_scans_ms=sc["all_scans_ms"], all_scans_bound_ms=sc["all_scans_bound_ms"],
+                exchange_ms=sc["exchange_ms"], exchange_bound_ms=sc["exchange_bound_ms"],
+                exchange_bound_by="bytes (card to host, PCIe Gen5 x16)",
+                exchange_bytes=sc["exchange_bytes"])))
+    shutil.rmtree(p7, ignore_errors=True)
     stamp("all phases passed")
 
     src = "string_grouper_tpu_torch/csrc/{}.cu"
@@ -1088,4 +1457,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--rank"]:
+        sys.exit(rank_main(sys.argv[2:]))
     sys.exit(main())

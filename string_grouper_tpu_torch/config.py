@@ -2,13 +2,14 @@
 
 The option surface of ``string_grouper_tpu.config`` (itself the reference
 library's ``StringGrouperConfig``, string_grouper/string_grouper.py:17-202)
-with ``device`` added and without the multi-host tier's ``multihost``.
+with ``device`` added; ``mesh`` and ``multihost`` name the port's own
+tiers (``string_grouper_tpu_torch.parallel``).
 """
 
 from __future__ import annotations
 
 import multiprocessing
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 
@@ -72,6 +73,21 @@ class StringGrouperConfig(NamedTuple):
         :func:`string_grouper_tpu_torch.parallel.make_mesh`), its slots
         devices of ``device``'s type; when set, encoding and matching run
         sharded across the mesh devices.
+    :param multihost: multi-process (multi-host) execution tier
+        (parallel/multihost.py), over the ranks of a ``torch.distributed``
+        group, one process and one device (``device``) per rank.  ``None``
+        (default) turns it on when a group of more than one rank is
+        initialized (``dist.get_world_size() > 1``); True/False force it.
+        Under the tier every rank calls the same API with the same full
+        inputs; encode and matching shard across the ranks and every rank
+        returns the identical full output.  The string ``"replicated"``
+        forces the fast tier (the exact corpus gathered to every rank --
+        O(corpus) host memory per rank); ``"sharded"`` forces the
+        memory-scalable tier (no rank holds the full corpus ELL; ~1/world
+        host memory).  ``True``/auto picks ``replicated`` below
+        ``SG_TPU_MH_SHARDED_ROWS`` corpus rows (default 2,000,000) and
+        ``sharded`` at or above it.  The ``replicated`` tier composes with
+        ``mesh`` (each rank's matcher then runs sharded over its mesh).
     """
 
     ngram_size: int = DEFAULT_NGRAM_SIZE
@@ -94,3 +110,4 @@ class StringGrouperConfig(NamedTuple):
     right_tile: int = DEFAULT_RIGHT_TILE
     device: str = DEFAULT_DEVICE
     mesh: Optional[object] = None
+    multihost: Optional[Union[bool, str]] = None

@@ -4,9 +4,10 @@ API-compatible with ``string_grouper_tpu.engine.StringGrouper`` (itself the
 reference class, string_grouper/string_grouper.py:224-1010): the same
 constructor, lifecycle (``__init__ -> fit -> get_matches / get_groups``),
 data and option resets, interactive ``add_match`` / ``remove_match``
-editing, and method twins of the four high-level functions, and the
-``mesh`` option's sharded tier (parallel/); the multi-host tiers are not
-part of it.  Strings are encoded into ELL TF-IDF on the host (corpus/),
+editing, method twins of the four high-level functions, the ``mesh``
+option's sharded tier and the ``multihost`` option's multi-process tiers
+over ``torch.distributed`` ranks (parallel/).  Strings are encoded into ELL
+TF-IDF on the host (corpus/),
 matched on the card by the two-phase matcher (ops/matcher.py, CUDA kernels
 in csrc/), grouped by connected components
 (ops/connected_components.py) and assembled into the reference's DataFrame
@@ -15,6 +16,7 @@ layout (frame.py).
 
 from __future__ import annotations
 
+import os
 import re
 import warnings
 from typing import List, Optional, Union
@@ -35,6 +37,11 @@ from .ops.matcher import (
 )
 from .ops.rescore import row_dot_fp64
 from .parallel.distributed import distributed_topn_cosine_matches, validate_mesh
+from .parallel.multihost import (
+    _world,
+    multihost_fit_pairs,
+    multihost_sharded_fit_pairs,
+)
 from .utils.profiling import PhaseTimings
 from .validation import (
     StringGrouperNotFitException,
@@ -44,6 +51,7 @@ from .validation import (
     validate_id_data,
     validate_input_data_combination,
     validate_is_fit,
+    validate_multihost,
     validate_n_blocks,
     validate_replace_na_and_drop,
     validate_series_of_strings,
@@ -142,6 +150,7 @@ class StringGrouper:
         # raises here as it does in __init__.
         self._device = resolve_device(self._config.device)
         validate_mesh(self._config.mesh, self._device)
+        validate_multihost(self._config)
         # Rebuild the encoder against the NEW config: options set via
         # update_options / method-twin kwargs (ngram_size, regex,
         # ignore_case, normalize_to_ascii, tfidf_matrix_dtype) must reach
@@ -216,6 +225,8 @@ class StringGrouper:
         # reference routes it to sp_matmul_topn's n_threads, :22, :731).
         set_native_threads(self._config.number_of_processes)
         self.timings.reset()
+        if self._use_multihost():
+            return self._fit_multihost()
         is_self = self._duplicates is None
         cfg = self._config
         # The ELL matrices (and the device hash prefetched onto the master's
@@ -269,16 +280,71 @@ class StringGrouper:
                 pairs = topn_cosine_matches(*args, device=self._device, **knobs)
         for k, v in (pairs.stats or {}).items():
             self.timings.seconds[f"match.{k}"] = v
+        self._store_pairs(pairs)
+        return self
+
+    def _store_pairs(self, pairs) -> None:
+        """Shared tail of every fit tier: the matches-list DataFrame in the
+        configured dtype."""
         self._true_max_n_matches = pairs.true_max_n_matches
         with self.timings.phase("assemble"):
             self._matches_list = pd.DataFrame(
                 {
                     "master_side": pairs.rows.astype(np.int64),
                     "dupe_side": pairs.cols.astype(np.int64),
-                    "similarity": pairs.sims.astype(cfg.tfidf_matrix_dtype),
+                    "similarity": pairs.sims.astype(
+                        self._config.tfidf_matrix_dtype
+                    ),
                 }
             )
         self.is_build = True
+
+    def _use_multihost(self) -> bool:
+        """Multi-process tier selection: an explicit option wins; ``None``
+        turns it on inside a ``torch.distributed`` group of more than one
+        rank."""
+        if self._config.multihost is not None:
+            return bool(self._config.multihost)
+        return _world()[1] > 1
+
+    def _multihost_tier(self) -> str:
+        """'replicated' (fast; the full exact corpus gathered to every
+        rank) or 'sharded' (memory-scalable; ~1/world host memory).  An
+        explicit string wins; True/auto switches to 'sharded' at the
+        SG_TPU_MH_SHARDED_ROWS corpus-row threshold (default 2,000,000).
+        Thresholdless fits (min_similarity <= 0: every pair qualifies) stay
+        replicated in auto mode: the sharded tier's candidate width would
+        be the whole corpus, and the output is corpus^2-sized anyway."""
+        if isinstance(self._config.multihost, str):
+            return self._config.multihost
+        if self._config.min_similarity <= 0:
+            return "replicated"
+        n_docs = len(self._master) + (
+            0 if self._duplicates is None else len(self._duplicates)
+        )
+        threshold = int(os.environ.get("SG_TPU_MH_SHARDED_ROWS", "2000000"))
+        return "sharded" if n_docs >= threshold else "replicated"
+
+    def _fit_multihost(self) -> "StringGrouper":
+        """Multi-process fit (parallel/multihost.py): every rank calls fit()
+        with the same full Series; encode and matching shard across the
+        ranks; the gathered matches list (and so every get_* output) is
+        identical on all ranks and equal to a single-process fit.  The
+        tier's stages land in ``timings.seconds`` as ``match.mh_<stage>``
+        and the tier's name in ``timings.labels["multihost_tier"]``."""
+        tier = self._multihost_tier()
+        fit_pairs = (
+            multihost_sharded_fit_pairs if tier == "sharded"
+            else multihost_fit_pairs
+        )
+        with self.timings.phase("match"):
+            pairs, stages = fit_pairs(
+                self._master, self._duplicates, self._config
+            )
+        self.timings.labels["multihost_tier"] = tier
+        for k, v in stages.items():
+            self.timings.seconds[f"match.mh_{k}"] = v
+        self._store_pairs(pairs)
         return self
 
     def dot(self) -> pd.Series:

@@ -13,9 +13,12 @@ class PhaseTimings:
     """Wall-clock seconds per pipeline phase of the most recent fit.
 
     ``seconds`` holds numbers only (float walls plus int counters such as
-    ``match.rounds``)."""
+    ``match.rounds``); non-numeric per-fit facts (which multi-host tier
+    ran) live in ``labels``, so numeric readers of ``seconds`` never
+    break."""
 
     seconds: Dict[str, float] = field(default_factory=dict)
+    labels: Dict[str, str] = field(default_factory=dict)
 
     @contextlib.contextmanager
     def phase(self, name: str) -> Iterator[None]:
@@ -29,6 +32,7 @@ class PhaseTimings:
 
     def reset(self) -> None:
         self.seconds.clear()
+        self.labels.clear()
 
     def __repr__(self) -> str:  # pragma: no cover - cosmetic
         body = ", ".join(

@@ -124,6 +124,17 @@ def validate_hash_dim(config: StringGrouperConfig):
         )
 
 
+_MULTIHOST_VALUES = (None, True, False, "replicated", "sharded")
+
+
+def validate_multihost(config: StringGrouperConfig):
+    if config.multihost not in _MULTIHOST_VALUES:
+        raise Exception(
+            "Invalid option value for multihost. The only permitted values "
+            "are None, True, False, 'replicated' and 'sharded'."
+        )
+
+
 def validate_strings_exist(master_side, dupe_side, master_strings, dupe_strings):
     """(reference string_grouper.py:980-985)"""
     if not master_strings.isin([master_side]).any():

@@ -18,7 +18,8 @@ on the fused kernel with no ``device_hash_codes`` launch.  The grouping and
 nearest-match entry points must give the CPU's frames, and the torch op
 ``_cc_labels`` on the card the native union-find's labels, bitwise.  Under
 ``mesh=`` (virtual meshes over the card, and ``make_mesh()``) the fits
-must give the CPU's frames with the kernels launched.
+must give the CPU's frames with the kernels launched; under ``multihost``
+(world 1, and two gloo ranks both on ``cuda:0``) the card's default frame.
 """
 
 import numpy as np
@@ -408,3 +409,76 @@ def test_mesh_float32_card_equals_cpu(dev):
     assert K.LAUNCHES["p1_fused_closed2"] > 0, K.LAUNCHES
     assert K.LAUNCHES["device_hash_codes"] == 0, K.LAUNCHES
     pd.testing.assert_frame_equal(card, sgt.match_strings(s, device="cpu", **kw))
+
+
+def test_multihost_world1_card_equals_default(dev):
+    """The multi-process tiers with no group (world 1) on the card: the
+    replicated tier (the single-device matcher on the whole slice) and the
+    sharded tier (scan + ring + ladder) give the default card frame."""
+    s = pd.Series(synthetic_company_names(2000, seed=17))
+    want = sgt.match_strings(s)
+    for mh in (True, "sharded"):
+        K.reset_launches()
+        got = sgt.match_strings(s, multihost=mh)
+        assert K.LAUNCHES["device_hash_codes"] > 0, (mh, K.LAUNCHES)
+        pd.testing.assert_frame_equal(got, want, check_exact=True)
+
+
+_RANK = r"""
+import json, sys
+from datetime import timedelta
+import pandas as pd, torch, torch.distributed as dist
+import string_grouper_tpu_torch as sgt
+from string_grouper_tpu_torch.ops import kernels as K
+from string_grouper_tpu_torch.utils.synthetic import synthetic_company_names
+rank, world, port = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
+torch.cuda.set_device(0)
+dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                        rank=rank, world_size=world,
+                        timeout=timedelta(seconds=120))
+s = pd.Series(synthetic_company_names(10000, seed=19))
+want = sgt.match_strings(s, multihost=False)
+for mh in (None, "sharded"):
+    K.reset_launches()
+    got = sgt.match_strings(s, multihost=mh)
+    launches = dict(K.LAUNCHES)
+    pd.testing.assert_frame_equal(got, want, check_exact=True)
+    print("RANK_OK", rank, mh, json.dumps(launches), flush=True)
+dist.destroy_process_group()
+"""
+
+
+def test_two_ranks_on_one_card_equal_frames(dev):
+    """Two gloo ranks, both on cuda:0: the auto-selected replicated tier
+    and the sharded tier give every rank the single-process card frame,
+    and each rank launches ``p1_fused_closed2`` in both."""
+    import json
+    import os
+    import socket
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = str(sock.getsockname()[1])
+    root = str(Path(__file__).resolve().parents[1])
+    env = dict(os.environ, PYTHONPATH=root, GLOO_SOCKET_IFNAME="lo")
+    procs = [subprocess.Popen([sys.executable, "-c", _RANK, str(r), "2", port],
+                              env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0, out[-3000:]
+        lines = [ln.split() for ln in out.splitlines() if ln.startswith("RANK_OK")]
+        assert [ln[2] for ln in lines] == ["None", "sharded"], out[-3000:]
+        for ln in lines:
+            assert ln[1] == str(r)
+            assert json.loads(" ".join(ln[3:]))["p1_fused_closed2"] > 0, ln

@@ -1,6 +1,7 @@
-"""The port stands alone: importing ``string_grouper_tpu_torch`` pulls in
-neither JAX nor the JAX package, no module of the port (nor chip_smoke.py)
-imports either, and the default device without a GPU raises instead of
+"""The port stands alone: importing ``string_grouper_tpu_torch`` (its
+multi-process tiers included) pulls in neither JAX nor the JAX package, no
+module of the port (nor chip_smoke.py, nor the port's multi-process test
+workers) imports either, and the default device without a GPU raises instead of
 quietly running on the CPU."""
 
 import ast
@@ -33,6 +34,7 @@ def test_import_leaves_jax_and_jax_package_out():
     code = (
         "import sys, string_grouper_tpu_torch, string_grouper_tpu_torch.ops.kernels\n"
         "import string_grouper_tpu_torch.parallel\n"
+        "import string_grouper_tpu_torch.parallel.multihost\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'string_grouper_tpu')]\n"
         "print(repr(bad))\n"
@@ -46,7 +48,11 @@ def test_import_leaves_jax_and_jax_package_out():
 
 @pytest.mark.parametrize(
     "path",
-    sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+    sorted(PORT.rglob("*.py")) + [
+        ROOT / "chip_smoke.py",
+        ROOT / "tests" / "torch_mh_worker.py",
+        ROOT / "tests" / "torch_mh_engine_worker.py",
+    ],
     ids=lambda p: str(p.relative_to(ROOT)),
 )
 def test_no_forbidden_import(path):
