@@ -7,12 +7,12 @@ Run from the repository root with no arguments:
 
 Phases (any failure raises and the script exits non-zero without a result):
 
-1. Device: the card's name and power limit; build the CUDA kernels from
-   string_grouper_tpu_torch/csrc/ (one nvcc per source, all started
-   together) and print the build time, and beside it ``nvcc -Xptxas -v``'s
-   registers, shared memory and spills for the three kernels on the
-   TMA/wgmma scan (no stack, no spills and no serialized wgmma, or the
-   phase fails).
+1. Device: the card's name and power limit;
+   build the CUDA kernels from string_grouper_tpu_torch/csrc/ (one nvcc per
+   source, all started together) and print the build time, and beside it
+   ``nvcc -Xptxas -v``'s registers, shared memory and spills for the three
+   kernels on the TMA/wgmma scan (no stack, no spills and no serialized
+   wgmma, or the phase fails).
 2. Kernel ``p1_fused_closed2`` against its plain PyTorch version on the
    card, on hash rows of the synthetic 663,000-name corpus (A 32,768 rows,
    B 131,072 rows, d 512, tile 4096, C 64, the default threshold): counts,
@@ -62,7 +62,12 @@ Phases (any failure raises and the script exits non-zero without a result):
    ``group_rep`` centroid and first and ``match_most_similar`` of them
    against 5,000 names (both with ``p1_fused_closed2`` and
    ``device_hash_codes`` launched), and ``compute_pairwise_similarities``
-   on 5,000 pairs (a host encode and row dot).
+   on 5,000 pairs (a host encode and row dot).  Then the 20,000-name
+   self-join under ``SG_TPU_FUSED=0``: the same frame with no
+   ``p1_fused_closed2`` launch (the torch-op body everywhere); and the
+   torch op ``hashed_projection`` (ops/hashing.py, off the main path) on
+   the card over the 20,000-name ELL, bitwise its CPU result, timed beside
+   its bytes bound and an ``index_add_`` yardstick.
 5. The full self-join at 663,000 names on the card: wall time, phases,
    escalation rungs, kernel launches, and the output row count.  On that
    run's grouper, with no refit: ``get_groups()`` (time, group count), and
@@ -105,8 +110,15 @@ Phases (any failure raises and the script exits non-zero without a result):
    the ladder's rows and walls, the memory keys and launches printed; the
    memory bounds of tests/mh_engine_worker.py asserted).  Its per-rank
    scan (``_local_block``, CUDA events) and exchange (``_exchange_rows``,
-   host clock) are timed beside their bounds.  A rank that fails or
-   overruns its limit fails the phase.
+   host clock) are timed beside their bounds.  Then the sharded tier with
+   2 device slots per rank (``mesh=`` a (1, 2) virtual mesh over the card,
+   so 4 devices in all): the 20,000-name self-join (phase 4's frame) and
+   the 663,000-name self-join (4,558,752 rows, phase 5's default frame;
+   stages, escalated rows, ladder rows and walls, memory keys and launches
+   printed; each slot's first-pass launch timed by CUDA events beside its
+   operations bound), each with ``p1_fused_closed2`` launched once per
+   slot on every kt = 2 pass.  A rank that fails or overruns its limit
+   fails the phase.
 
 Without a CUDA GPU, or without the repository beside it, it exits non-zero
 and prints no result.  ``python chip_smoke.py --rank R WORLD PORT DIR`` is
@@ -166,6 +178,8 @@ PEAK_PCIE = 64e9
 WORLD = 2
 N_SHARDED = 100_000
 RANK_LIMIT_S = 480
+# Device slots per rank in phase 7's sharded runs over a virtual mesh.
+SLOTS = 2
 
 
 START = time.perf_counter()
@@ -708,6 +722,33 @@ def assert_same(got, want):
         pd.testing.assert_series_equal(got, want, check_exact=True)
 
 
+def check_hashed_projection(TH, ell, dev, dim=512):
+    """The torch op ``hashed_projection`` (ops/hashing.py, off the main
+    path) on the card over an ELL: bitwise its CPU result (one
+    ``scatter_add_`` per slot column, so each bucket sums in slot order on
+    both), timed beside its bytes bound and one ``index_add_`` of the same
+    (row * dim + bucket, value) pairs."""
+    ids = torch.from_numpy(ell.ids)
+    vals = torch.from_numpy(ell.vals64.astype(np.float32))
+    want = TH.hashed_projection(ids, vals, dim)
+    ids_d, vals_d = ids.to(dev), vals.to(dev)
+    got = TH.hashed_projection(ids_d, vals_d, dim).cpu()
+    n_diff = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+    assert n_diff == 0, f"hashed_projection: {n_diff} elements differ from the CPU"
+    ms = cuda_ms(lambda: TH.hashed_projection(ids_d, vals_d, dim), 3)
+    n, w = ell.ids.shape
+    nbytes = n * w * 8 + n * dim * 4  # ids + values read once, f32 out written once
+    valid = ids_d >= 0
+    flat = (torch.arange(n, device=dev)[:, None] * dim
+            + TH.bucket_of(ids_d, dim).long())[valid]
+    v = vals_d[valid]
+    lib_ms = cuda_ms(lambda: torch.zeros(n * dim, device=dev).index_add_(0, flat, v), 3)
+    log(f"hashed_projection (torch op, off the main path) on the card: {n} x {w} slots "
+        f"-> ({n}, {dim}) f32; 0 of {got.numel()} elements differ from the CPU; "
+        f"ms={ms} bound_ms={nbytes / PEAK_BYTES * 1e3} (bytes) library_ms(index_add_ of "
+        f"{int(valid.sum())} values)={lib_ms}")
+
+
 # ------------------------------------------------------------------ phase 5
 def check_cc_labels(CC, matches, n, dev):
     """The torch op ``_cc_labels`` on the card over a matches list's edges
@@ -837,25 +878,28 @@ def spy_mesh_collectives(D):
 
 
 # ------------------------------------------------------------------ phase 7
-def spy_rank_scan(MH):
-    """Wrap the multi-process tiers' ``_local_block`` (CUDA events) and
-    ``_exchange_rows`` (host clock, after a synchronize so the scan's own
-    device time stays out of it).  Returns ``(restore, report)``;
-    ``report()`` gives each scan pass beside its operations bound and the
-    exchanges beside their bytes bound (what the card must send to the
-    host, at the host link's rate), and the first pass's ``torch.mm`` of
-    the same operands as its library yardstick."""
+def spy_rank_scan(MH, slots=1):
+    """Wrap the multi-process tiers' ``_local_block`` (CUDA events; one
+    call per slot per scan pass) and ``_exchange_rows`` (host clock, after
+    a synchronize so the scan's own device time stays out of it).  Returns
+    ``(restore, report)``; ``report()`` gives each slot's scan beside its
+    operations bound -- the first pass's ``slots`` calls also on their own
+    -- and the exchanges beside their bytes bound (what the card must send
+    to the host, at the host link's rate), and the first slot's
+    ``torch.mm`` of the same operands (in row blocks of at most 16 GiB of
+    product) as its library yardstick."""
     real_block, real_exchange = MH._local_block, MH._exchange_rows
     scans, exchanges, first = [], [], []
 
-    def local_block(a_rows, b_loc, *a, **k):
+    def local_block(a_rows, b_loc, thr, col_off, *a, **k):
         e0, e1 = _events()
         e0.record()
-        out = real_block(a_rows, b_loc, *a, **k)
+        out = real_block(a_rows, b_loc, thr, col_off, *a, **k)
         e1.record()
         if not first:
             first.extend((a_rows, b_loc))
         scans.append(dict(rows=a_rows.shape[0], cols=b_loc.shape[0], d=b_loc.shape[1],
+                          col_off=col_off, device=str(b_loc.device),
                           k_tile=k["k_tile"], cand_c=k["cand_c"], fused=k["fused"],
                           ev=(e0, e1)))
         return out
@@ -881,14 +925,26 @@ def spy_rank_scan(MH):
             e0, e1 = sc.pop("ev")
             ops = 2 * sc["rows"] * sc["cols"] * sc["d"]
             passes.append(dict(sc, ms=e0.elapsed_time(e1), bound_ms=ops / PEAK_BF16 * 1e3))
+        # the yardstick in row blocks whose bf16 product fits 16 GiB (the
+        # 663k slot's whole product would need 207 GiB)
         a, b = first
-        lib_ms = cuda_ms(lambda: torch.mm(a, b.T), 3)
+        blk = max(1, (16 << 30) // (b.shape[0] * a.element_size()))
+
+        def mm_blocks():
+            for i in range(0, a.shape[0], blk):
+                torch.mm(a[i:i + blk], b.T)  # each product freed at once
+
+        lib_ms = cuda_ms(mm_blocks, 3)
         first.clear()
         torch.cuda.empty_cache()
         ex_bytes = sum(e["bytes"] for e in exchanges)
         return dict(
             scan_passes=passes, first_scan_ms=passes[0]["ms"],
             first_scan_bound_ms=passes[0]["bound_ms"], first_scan_library_ms=lib_ms,
+            first_pass_slots=[dict(col_off=p["col_off"], ms=p["ms"], bound_ms=p["bound_ms"],
+                                   fused=p["fused"]) for p in passes[:slots]],
+            fused_calls=sum(p["fused"] for p in passes),
+            kt2_calls=sum(p["k_tile"] == 2 for p in passes),
             all_scans_ms=sum(p["ms"] for p in passes),
             all_scans_bound_ms=sum(p["bound_ms"] for p in passes),
             exchanges=len(exchanges), exchange_ms=sum(e["s"] for e in exchanges) * 1e3,
@@ -955,6 +1011,7 @@ def rank_main(args) -> int:
 
     import string_grouper_tpu_torch as sgt
     from string_grouper_tpu_torch.ops import kernels as K
+    from string_grouper_tpu_torch.parallel import Mesh
     from string_grouper_tpu_torch.parallel import multihost as MH
     from string_grouper_tpu_torch.utils.synthetic import synthetic_company_names
 
@@ -996,6 +1053,39 @@ def rank_main(args) -> int:
         out = fn(*args, number_of_processes=threads, **kw)
         return out, time.perf_counter() - t0
 
+    def check_memory(st):
+        """tests/mh_engine_worker.py's memory bounds of the sharded tier."""
+        local_b = st["match.mh_mem_local_ell_bytes"]
+        full_b = st["match.mh_mem_replicated_ell_bytes"]
+        visit_b = st["match.mh_mem_peak_visit_bytes"]
+        assert local_b * world <= full_b * 1.5, (local_b, full_b, world)
+        assert visit_b <= full_b * 1.5 / world + 1, (visit_b, full_b, world)
+
+    # the sharded tier over SLOTS device slots per rank: a (1, SLOTS)
+    # virtual mesh over the card, WORLD x SLOTS devices in all
+    slot_mesh = Mesh([[torch.device("cuda", 0)] * SLOTS])
+
+    def sharded_slots(label, series, want):
+        """A sharded fit over the rank's slots: the single-process frame,
+        and ``p1_fused_closed2`` launched once per slot on every kt = 2
+        pass (the ladder's wider rungs run the torch-op body)."""
+        restore, report = spy_rank_scan(MH, SLOTS)
+        try:
+            frame, sg, wall = fit(series, multihost="sharded", mesh=slot_mesh)
+        finally:
+            restore()
+        check(label, frame, want, DEFAULT_PATH, wall, sg)
+        sc = report()
+        n_fused = rec["launches"][label]["p1_fused_closed2"]
+        assert sc["kt2_calls"] >= SLOTS and sc["kt2_calls"] % SLOTS == 0, sc["kt2_calls"]
+        assert sc["fused_calls"] == sc["kt2_calls"] == n_fused, (sc["fused_calls"], n_fused)
+        assert [p["col_off"] for p in sc["first_pass_slots"]] == [
+            (rank * SLOTS + j) * sc["scan_passes"][0]["cols"] for j in range(SLOTS)]
+        log(f"{label}: p1_fused_closed2 launched {n_fused} times, once per slot on each "
+            f"of {sc['kt2_calls'] // SLOTS} kt=2 pass(es); first pass per slot: "
+            + json.dumps(sc["first_pass_slots"]))
+        return frame, sg, sc
+
     try:
         s20 = pd.Series(synthetic_company_names(N_FRAME))
         dupes5 = pd.Series(synthetic_company_names(N_ORACLE, seed=7))
@@ -1016,6 +1106,7 @@ def rank_main(args) -> int:
               DEFAULT_PATH, wall)
         frame, sg, wall = fit(s20, tfidf_matrix_dtype=np.float32)
         check(f"float32 self-join {N_FRAME}", frame, "f32", PACKED_PATH, wall, sg)
+        sharded_slots(f"self-join {N_FRAME} sharded, {SLOTS} slots", s20, "self")
 
         s_full = pd.Series(synthetic_company_names(N_FULL))
         frame, sg, wall = fit(s_full)
@@ -1023,7 +1114,7 @@ def rank_main(args) -> int:
         assert len(frame) == ROWS_FULL, f"{len(frame)} output rows, expected {ROWS_FULL}"
         check(f"self-join {N_FULL} replicated", frame, "full", DEFAULT_PATH, wall, sg)
         log("stages: " + json.dumps(rec["stages"][f"self-join {N_FULL} replicated"]))
-        del frame, sg, s_full
+        del frame, sg
 
         s_sh = pd.Series(synthetic_company_names(N_SHARDED))
         restore, report = spy_rank_scan(MH)
@@ -1034,14 +1125,23 @@ def rank_main(args) -> int:
         label = f"self-join {N_SHARDED} sharded"
         check(label, frame, "sharded_100k", DEFAULT_PATH, wall, sg)
         st = rec["stages"][label]
-        local_b = st["match.mh_mem_local_ell_bytes"]
-        full_b = st["match.mh_mem_replicated_ell_bytes"]
-        visit_b = st["match.mh_mem_peak_visit_bytes"]
-        assert local_b * world <= full_b * 1.5, (local_b, full_b, world)
-        assert visit_b <= full_b * 1.5 / world + 1, (visit_b, full_b, world)
+        check_memory(st)
         log("stages: " + json.dumps(st))
         rec["scan"] = report()
         log("scan and exchange: " + json.dumps(rec["scan"]))
+        del frame, sg, s_sh
+
+        label = f"self-join {N_FULL} sharded, {SLOTS} slots"
+        frame, sg, sc = sharded_slots(label, s_full, "full")
+        assert len(frame) == ROWS_FULL, f"{len(frame)} output rows, expected {ROWS_FULL}"
+        st = rec["stages"][label]
+        check_memory(st)
+        log("stages: " + json.dumps(st))
+        rec["scan_slots"] = sc
+        log("scan and exchange: " + json.dumps(
+            {k: v for k, v in sc.items() if k != "scan_passes"}))
+        log("scan passes (one entry per slot): " + json.dumps(sc["scan_passes"]))
+        del frame, sg, s_full
     finally:
         dist.destroy_process_group()
     (out_dir / f"rank_{rank}.json").write_text(json.dumps(rec))
@@ -1063,6 +1163,8 @@ def main() -> int:
 
     from string_grouper_tpu_torch.parallel import Mesh, make_mesh
     from string_grouper_tpu_torch.parallel import distributed as D
+
+    from string_grouper_tpu_torch.ops import hashing as TH
 
     dev = torch.device("cuda")
     card = gpu_line()
@@ -1198,6 +1300,26 @@ def main() -> int:
     assert ((sims >= 0) & (sims <= 1 + 1e-12)).all()
     log(f"compute_pairwise_similarities ({N_ORACLE} pairs): card == cpu, "
         f"{int((sims > 0).sum())} non-zero, max {sims.max()}; {t_card:.2f} s")
+
+    # the switch: the torch-op tile body everywhere, the kernel nowhere
+    stamp("phase 4: SG_TPU_FUSED=0 and the torch op hashed_projection")
+    K.reset_launches()
+    os.environ["SG_TPU_FUSED"] = "0"
+    try:
+        t0 = time.perf_counter()
+        off_df = sgt.match_strings(s20)
+        t_off = time.perf_counter() - t0
+    finally:
+        del os.environ["SG_TPU_FUSED"]
+    l_off = dict(K.LAUNCHES)
+    assert l_off["p1_fused_closed2"] == 0, f"SG_TPU_FUSED=0 launches {l_off}"
+    assert l_off["device_hash_codes"] > 0, f"SG_TPU_FUSED=0 launches {l_off}"
+    pd.testing.assert_frame_equal(off_df, frames4["default"])
+    log(f"SG_TPU_FUSED=0 self-join ({N_FRAME} names): equal to the card frame, "
+        f"{len(off_df)} rows, {t_off:.2f} s; launches {l_off}")
+    del off_df
+    check_hashed_projection(TH, TfidfEncoder(StringGrouperConfig()).fit_transform(
+        list(s20)).wait_ready(), dev)
 
     # ---- phase 5: the full self-join, default, chunked and packed ----------
     stamp("phase 5: the 663k self-joins")
@@ -1410,8 +1532,8 @@ def main() -> int:
     recs = run_ranks(p7)
     log(f"{WORLD} ranks: {time.perf_counter() - t0:.1f} s wall, both passed")
     for rec in recs:
-        for label, launches in rec["launches"].items():
-            assert launches["p1_fused_closed2"] > 0, (rec["rank"], label, launches)
+        for label, l_rank in rec["launches"].items():
+            assert l_rank["p1_fused_closed2"] > 0, (rec["rank"], label, l_rank)
         full = rec["launches"][f"self-join {N_FULL} replicated"]
         assert full["device_hash_codes"] > 0, (rec["rank"], full)
         sc = rec["scan"]
@@ -1425,6 +1547,19 @@ def main() -> int:
                 exchange_ms=sc["exchange_ms"], exchange_bound_ms=sc["exchange_bound_ms"],
                 exchange_bound_by="bytes (card to host, PCIe Gen5 x16)",
                 exchange_bytes=sc["exchange_bytes"])))
+        sl = rec["scan_slots"]
+        log(f"kernel row ({SLOTS} slots per rank, {N_FULL} sharded), rank {rec['rank']}: "
+            + json.dumps(dict(
+                first_pass_slots=sl["first_pass_slots"], bound_by="operations",
+                library_ms=sl["first_scan_library_ms"],
+                launches_p1_fused_closed2=rec["launches"][
+                    f"self-join {N_FULL} sharded, {SLOTS} slots"]["p1_fused_closed2"],
+                all_scans_ms=sl["all_scans_ms"], all_scans_bound_ms=sl["all_scans_bound_ms"],
+                exchanges=sl["exchanges"], exchange_ms=sl["exchange_ms"],
+                exchange_bound_ms=sl["exchange_bound_ms"],
+                exchange_bytes=sl["exchange_bytes"])))
+    # rank 0's launches on the sharded tier over its slots (663k)
+    l_slots = recs[0]["launches"][f"self-join {N_FULL} sharded, {SLOTS} slots"]
     shutil.rmtree(p7, ignore_errors=True)
     stamp("all phases passed")
 
@@ -1433,7 +1568,8 @@ def main() -> int:
     kernels = [
         dict(name="p1_fused_closed2", route="cuda",
              source=src.format("p1_fused_closed2"), replaces=pk.format(117),
-             launches=launches["p1_fused_closed2"] + l_mesh["p1_fused_closed2"],
+             launches=launches["p1_fused_closed2"] + l_mesh["p1_fused_closed2"]
+             + l_slots["p1_fused_closed2"],
              **res_p1),
         dict(name="p1_fused_chain", route="cuda",
              source=src.format("p1_fused_chain"), replaces=pk.format(275),
@@ -1444,7 +1580,8 @@ def main() -> int:
         dict(name="device_hash_codes", route="cuda",
              source=src.format("device_hash_codes"),
              replaces="string_grouper_tpu/ops/matcher.py:398",
-             launches=launches["device_hash_codes"] + l_mesh["device_hash_codes"],
+             launches=launches["device_hash_codes"] + l_mesh["device_hash_codes"]
+             + l_slots["device_hash_codes"],
              **res_hash),
     ]
     print(json.dumps({"kernels": kernels}))

@@ -72,12 +72,15 @@ class StringGrouperConfig(NamedTuple):
         axes ('dp', 'mp') (see
         :func:`string_grouper_tpu_torch.parallel.make_mesh`), its slots
         devices of ``device``'s type; when set, encoding and matching run
-        sharded across the mesh devices.
+        sharded across the mesh devices.  Beside the ``sharded``
+        multi-process tier (forced or auto-selected) it gives each rank its
+        device slots instead: the mesh's devices flattened in (dp, mp)
+        row-major order, the same number on every rank.
     :param multihost: multi-process (multi-host) execution tier
         (parallel/multihost.py), over the ranks of a ``torch.distributed``
-        group, one process and one device (``device``) per rank.  ``None``
-        (default) turns it on when a group of more than one rank is
-        initialized (``dist.get_world_size() > 1``); True/False force it.
+        group, one process per rank on ``device`` (or on its ``mesh``).
+        ``None`` (default) turns it on when a group of more than one rank
+        is initialized (``dist.get_world_size() > 1``); True/False force it.
         Under the tier every rank calls the same API with the same full
         inputs; encode and matching shard across the ranks and every rank
         returns the identical full output.  The string ``"replicated"``
@@ -87,7 +90,9 @@ class StringGrouperConfig(NamedTuple):
         host memory).  ``True``/auto picks ``replicated`` below
         ``SG_TPU_MH_SHARDED_ROWS`` corpus rows (default 2,000,000) and
         ``sharded`` at or above it.  The ``replicated`` tier composes with
-        ``mesh`` (each rank's matcher then runs sharded over its mesh).
+        ``mesh`` (each rank's matcher then runs sharded over its mesh); the
+        ``sharded`` tier takes the mesh as the rank's device slots and
+        shards the right side over ``world x slots`` devices.
     """
 
     ngram_size: int = DEFAULT_NGRAM_SIZE

@@ -4,6 +4,7 @@ from .matcher import (
     order_like_reference_csr,
     topn_cosine_matches,
 )
+from .hashing import hashed_projection
 from .rescore import rescore_pairs_fp64
 
 __all__ = [
@@ -11,5 +12,6 @@ __all__ = [
     "apply_self_join_fixups",
     "order_like_reference_csr",
     "topn_cosine_matches",
+    "hashed_projection",
     "rescore_pairs_fp64",
 ]

@@ -22,7 +22,8 @@
       (k_tile=2, thresholded) pass is the fused kernel ``p1_fused_closed2``
       (matmul + threshold + closed-form top-2 + running top-C); the torch-op
       tile body ``_ub_topk_scan`` serves the CPU, escalation re-matches at
-      k_tile > 2 and thresholdless runs.
+      k_tile > 2, thresholdless runs, and every run under
+      ``SG_TPU_FUSED=0`` (``fused_enabled``).
   download: candidate column ids only (ragged-prefix-compacted, 20-bit
       packed, one transfer per segment, on a copy stream that waits on the
       segment's event) plus per-row metadata with an upper bound on every
@@ -218,10 +219,39 @@ def _chunked_p1_size_ok(n_right: int) -> bool:
     )
 
 
-def _chunked_device_ok(device: torch.device) -> bool:
-    """The chunked pipeline runs on the card only (where the JAX package
-    tests ``on_tpu``)."""
+def fused_enabled() -> bool:
+    """Whether the fused phase-1 kernel ``p1_fused_closed2`` (and its
+    chained form ``p1_fused_chain``) runs for the default (k_tile = 2,
+    thresholded) configuration on the card, read per call.
+    ``SG_TPU_FUSED=0`` forces the torch-op tile body everywhere (the JAX
+    package's knob): the single-device scan and its kt = 2 escalation, the
+    chunked pipeline, the mesh tier and the multi-process tiers' scan.  The
+    two give the same pairs; the kernel is the faster."""
+    return os.environ.get("SG_TPU_FUSED", "1") != "0"
+
+
+def _on_card(device: torch.device) -> bool:
+    """The fused kernels and the chunked pipeline run on the card only
+    (where the JAX package tests ``on_tpu``); the CPU takes the torch-op
+    body."""
     return device.type == "cuda"
+
+
+def use_fused(device: torch.device, k_tile: int, thr: float, m: int, n: int,
+              d: int, tile: int, cand_c: int) -> bool:
+    """Whether a phase-1 pass of ``m`` left rows against ``n`` right rows
+    on ``device`` runs the kernel ``p1_fused_closed2``: on the card, switch
+    on, the default ``k_tile = 2`` with a threshold, and a shape the kernel
+    takes.  The one rule of every site (the single-device scan and its
+    escalation, the mesh tier's shards, the multi-process scan's slots);
+    the torch-op body runs otherwise."""
+    return (
+        _on_card(device)
+        and fused_enabled()
+        and k_tile == 2
+        and thr > 0
+        and p1_fused_supported(m, n, d, tile, cand_c)
+    )
 
 
 def _chunk_bounds(n_seg: int, seg_rows: int, n_right_p: int):
@@ -278,7 +308,8 @@ def chunked_p1_will_engage(ell: EllMatrix, is_self: bool,
         and src is not None
         and src.row_hash is not None
         and device_encode_enabled()
-        and _chunked_device_ok(device)
+        and fused_enabled()
+        and _on_card(device)
         and effective_threshold(min_similarity) > 0
         and _chunked_p1_size_ok(ell.n_rows)
     ):
@@ -1112,7 +1143,6 @@ def _phase1_single(
     n_right = right.n_rows if right_sel is None else len(right_sel)
     (tile, n_right_p, chunk, n_left_p, n_seg, cpg, n_chunks,
      seg_rows) = _p1_geometry(n_left, n_right, left_chunk, right_tile)
-    on_cuda = device.type == "cuda"
 
     def build_selected(ell, sel, n_valid, n_pad):
         """Hash matrix of selected rows only.  With a byte-level payload:
@@ -1142,7 +1172,8 @@ def _phase1_single(
         is_self
         and chunk_src is not None
         and device_encode_enabled()
-        and _chunked_device_ok(device)
+        and fused_enabled()
+        and _on_card(device)
         and _chunked_p1_size_ok(right.n_rows)
         and seg_rows % tile == 0
         and n_seg > 1
@@ -1239,12 +1270,8 @@ def _phase1_single(
         (including the compaction epilogue); the device queue drains while
         the consumer scores earlier segments."""
         thr = float(thr_eff)
-        use_fused = (
-            on_cuda
-            and k_tile == 2
-            and thr_eff > 0
-            and p1_fused_supported(seg_rows, n_right_p, hash_dim, tile, cand_c)
-        )
+        fused = use_fused(device, k_tile, thr_eff, seg_rows, n_right_p,
+                          hash_dim, tile, cand_c)
         use_chunked = (
             chunked_ok
             and k_tile == 2
@@ -1306,7 +1333,7 @@ def _phase1_single(
         futs = []
         for g in range(n_seg):
             a_seg = a_segment(g)
-            if use_fused:
+            if fused:
                 # Fused phase 1: matmul + closed-form kt=2 extraction +
                 # running top-C merge in one CUDA kernel.
                 cols2, counts, tmax, bound, _ = p1_fused_closed2(
@@ -1336,12 +1363,8 @@ def _phase1_single(
         idx[:m] = row_idx
         a_sel = _gather_pad_rows(dense_a(), _to_device(idx, device), m, m_p)
         thr = float(thr_eff)
-        if (
-            on_cuda
-            and k_tile == 2
-            and thr_eff > 0
-            and p1_fused_supported(m_p, n_right_p, hash_dim, tile, cand_c)
-        ):
+        if use_fused(device, k_tile, thr_eff, m_p, n_right_p, hash_dim, tile,
+                     cand_c):
             # kt=2 escalation buckets (rows unsafe only via top-C
             # truncation) re-match on the fused kernel too.
             cols2, counts, _tmax, ub_last, _ = p1_fused_closed2(

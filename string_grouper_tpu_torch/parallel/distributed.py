@@ -44,7 +44,7 @@ import numpy as np
 import torch
 
 from ..corpus.tfidf import EllMatrix
-from ..ops.kernels import p1_fused_closed2, p1_fused_supported
+from ..ops.kernels import p1_fused_closed2
 from ..ops.matcher import (
     _ESC_DL_POOL,
     _ROWS_COMPACT_MIN,
@@ -66,6 +66,7 @@ from ..ops.matcher import (
     match_block,
     match_with_collapse,
     order_like_reference_csr,
+    use_fused,
 )
 from ..validation import resolve_device
 
@@ -368,7 +369,6 @@ def _phase1_distributed(
     seg_rows = spg * sc
     shard_seg = spg * chunk_loc  # one dp shard's rows of a segment
     a_loc = _shard_rows(a_hash, mesh, chunk_loc)
-    on_cuda = home.type == "cuda"
     geom = dict(tile=tile, chunk_loc=chunk_loc)
 
     def run_stream(thr_eff, cand_c, k_tile):
@@ -378,12 +378,8 @@ def _phase1_distributed(
         thr = float(thr_eff)
         # The CUDA kernel per shard, once per (segment, shard), at the
         # single-device path's eligibility; the torch-op body otherwise.
-        use_fused = (
-            on_cuda
-            and k_tile == 2
-            and thr_eff > 0
-            and p1_fused_supported(shard_seg, n_loc, hash_dim, tile, cand_c)
-        )
+        fused = use_fused(home, k_tile, thr_eff, shard_seg, n_loc, hash_dim,
+                          tile, cand_c)
         do_compact = thr_eff > 0 and cand_c > _SHIP_BUDGET_ROWS
         budget = -(-seg_rows * _SHIP_BUDGET_ROWS // 1024) * 1024
         futs = []
@@ -392,7 +388,7 @@ def _phase1_distributed(
                    for row in a_loc]
             cols2, bound, counts, tmax = _dist_match(
                 mesh, seg, b_loc, thr, cand_c=cand_c, k_tile=k_tile,
-                fused=use_fused, **geom,
+                fused=fused, **geom,
             )
             if do_compact:
                 flat, n_i = _sort_compact(cols2, budget)

@@ -2,15 +2,18 @@
 counterpart of ``string_grouper_tpu.parallel.multihost`` (same tiers, same
 names).
 
-Ranks are processes, each with ONE device: the fit's ``device``
-(``"cuda"`` is the current device, which the caller sets with
-``torch.cuda.set_device(local_rank)``).  The rank and the world size come
-from ``torch.distributed`` when a group is initialized; otherwise the rank
-is 0, the world 1, and every collective below is the identity (the
-single-process run of the tiers that the CPU tests cover).  The tiers'
-geometry uses ``n_dev = world`` where the JAX tier uses its global device
-count; shard count never changes the pair set, so only stage counters
-(``esc_rows`` and the like) can differ from the JAX package's.
+Ranks are processes.  The rank and the world size come from
+``torch.distributed`` when a group is initialized; otherwise the rank is 0,
+the world 1, and every collective below is the identity (the single-process
+run of the tiers that the CPU tests cover).  A rank drives one device, the
+fit's ``device`` (``"cuda"`` is the current device, which the caller sets
+with ``torch.cuda.set_device(local_rank)``) -- or, in the sharded tiers,
+the device SLOTS of a ``mesh`` (``parallel.Mesh``, flattened in (dp, mp)
+row-major order; a slot may repeat a device).  Every rank must have the
+same number of slots ``k``; the tiers' geometry then uses ``n_dev = world x
+k``, the JAX tiers' global device count, and slot ``j`` of rank ``r`` is
+global device ``r * k + j``.  With JAX's device count the sharded tiers do
+JAX's work: the same candidate widths, the same escalated rows.
 
 Three tiers live here:
 
@@ -24,10 +27,12 @@ Three tiers live here:
 * the SHARDED production tier (:func:`multihost_sharded_fit_pairs`;
   ``multihost="sharded"`` or auto above the threshold): no rank holds the
   full corpus ELL or payload.  Each rank hashes its right block on its
-  device, the left hash replicates onto every device block by block, each
-  rank scans all left rows against its own block, and every rank receives
-  its own rows' candidates from every peer (:func:`_phase1_scan`); exact
-  rescoring visits remote right shards over a broadcast ring.
+  first slot and moves one sub-block to each slot, the left hash
+  replicates onto every rank block by block and reaches each distinct slot
+  device once, every slot scans all left rows against its sub-block, the
+  slots merge on slot 0, and every rank receives its own rows' candidates
+  from every peer (:func:`_phase1_scan`); exact rescoring visits remote
+  right shards over a broadcast ring.
 * the shard-local DEMONSTRATION tier (:func:`multihost_encode_shard` +
   :func:`multihost_match_shard`): the self-join-only pipeline the sharded
   tier grew from.
@@ -40,9 +45,10 @@ replicated left hash, the ``all_gather`` / ``pmax`` of the phase-1 scan)
 run through the host on the same group; there is no device-to-device
 (NCCL) route.  Every decision that could send one rank into a collective
 its peers skip is made global first (the capacity checks, the ring's
-``need`` vector, the ladder's continuation, the mesh validation, the
-completeness checks), so a raise happens on every rank together; the
-group's timeout turns anything left into a failure instead of a hang.
+``need`` vector, the ladder's continuation, the mesh validation and
+slot count, the completeness checks), so a raise happens on every rank
+together; the group's timeout turns anything left into a failure instead of
+a hang.
 """
 
 from __future__ import annotations
@@ -63,7 +69,6 @@ from ..corpus.tfidf import (
     _ell_from_unique_pairs,
     device_tables_from_vocab,
 )
-from ..ops.kernels import p1_fused_supported
 from ..ops.matcher import (
     MatchPairs,
     _pairs_from_ship,
@@ -77,6 +82,7 @@ from ..ops.matcher import (
     initial_cand_c,
     initial_k_tile,
     topn_cosine_matches,
+    use_fused,
 )
 from ..ops.rescore import rescore_pairs_fp64
 from ..validation import resolve_device
@@ -258,29 +264,63 @@ def _exchange_rows(cols: torch.Tensor, bound: torch.Tensor,
     return cols_my, bound_my, tmax_my
 
 
-def _phase1_scan(a_rows: torch.Tensor, b_loc: torch.Tensor, thr: float,
+def _phase1_scan(a_rows: dict, b_slots: list, thr: float,
                  starts: np.ndarray, counts: np.ndarray, *, tile: int,
                  chunk: int, cand_c: int, k_tile: int):
     """The phase-1 scan of the multi-process tiers (JAX's
-    ``_make_phase1_scan``): ``a_rows`` (every rank holds the same rows)
-    against this rank's right block ``b_loc`` (global columns from
-    ``rank * len(b_loc)``), then :func:`_exchange_rows`.  The CUDA kernel
-    ``p1_fused_closed2`` runs at kt = 2 with a threshold on the card where
-    it supports the shape (the mesh tier's rule), the torch-op
-    ``match_block`` chunk by chunk otherwise."""
+    ``_make_phase1_scan`` over the ``(1, n_dev)`` mesh): the same left rows
+    on every rank against this rank's slots, then :func:`_exchange_rows`.
+
+    ``b_slots[j]`` is slot j's right sub-block (``per_dev`` rows on the
+    slot's device; global columns from ``(rank * k + j) * per_dev``), and
+    ``a_rows`` maps each distinct slot device to its copy of the left rows.
+    Per slot, the CUDA kernel ``p1_fused_closed2`` runs at kt = 2 with a
+    threshold on the card where it supports the shape (the mesh tier's
+    rule, off under ``SG_TPU_FUSED=0``), the torch-op ``match_block`` chunk
+    by chunk otherwise.  The slots merge on slot 0 in slot order (columns
+    concatenated along the width, bound and tmax by an elementwise maximum:
+    the mesh tier's ``_dist_match`` at dp = 1), so the width is global
+    device order once the exchange adds the ranks."""
     rank, _size = _world()
-    n_loc, d = b_loc.shape
-    fused = (
-        b_loc.is_cuda
-        and k_tile == 2
-        and thr > 0
-        and p1_fused_supported(a_rows.shape[0], n_loc, d, tile, cand_c)
-    )
-    cols, _counts, tmax, bound = _local_block(
-        a_rows, b_loc, thr, rank * n_loc, tile=tile, chunk_loc=chunk,
-        cand_c=cand_c, k_tile=k_tile, fused=fused,
-    )
+    k = len(b_slots)
+    per_dev, d = b_slots[0].shape
+    home = b_slots[0].device
+    parts = []
+    for j, b in enumerate(b_slots):
+        a = a_rows[b.device]
+        fused = use_fused(b.device, k_tile, thr, a.shape[0], per_dev, d, tile,
+                          cand_c)
+        cols, _counts, tmax, bound = _local_block(
+            a, b, thr, (rank * k + j) * per_dev, tile=tile, chunk_loc=chunk,
+            cand_c=cand_c, k_tile=k_tile, fused=fused,
+        )
+        parts.append([t.to(home) for t in (cols, tmax, bound)])
+    cols = torch.cat([p[0] for p in parts], 1)
+    tmax, bound = (torch.stack([p[i] for p in parts]).amax(0) for i in (1, 2))
     return _exchange_rows(cols, bound, tmax, starts, counts)
+
+
+def _slot_blocks(block: torch.Tensor, slots: list) -> list:
+    """``block`` (k x per_dev rows) cut into the slots' sub-blocks, sub-block
+    j moved to slot j's device (a view where it is already there)."""
+    per_dev = block.shape[0] // len(slots)
+    return [block[j * per_dev:(j + 1) * per_dev].to(dev)
+            for j, dev in enumerate(slots)]
+
+
+def _slot_copies(rows: torch.Tensor, b_slots: list) -> dict:
+    """``rows`` on each distinct device of the slots, once per device."""
+    out: dict = {}
+    for b in b_slots:
+        if b.device not in out:
+            out[b.device] = rows.to(b.device)
+    return out
+
+
+def _rows_of(a_rows: dict, idx: np.ndarray) -> dict:
+    """Rows ``idx`` of every device's copy, gathered on that device."""
+    return {dev: a[torch.as_tensor(idx, device=dev)]
+            for dev, a in a_rows.items()}
 
 
 def _batch_owners(rows: np.ndarray, row_starts: np.ndarray):
@@ -477,39 +517,50 @@ def multihost_match_shard(
     tile: int = 4096,
     cand_c0: Optional[int] = None,
     device="cuda",
+    mesh=None,
 ):
     """Self-join matching across ranks: this rank owns rows
     ``[shard_row0, shard_row0 + local_ell.n_rows)`` of the corpus and
     returns the EXACT top-n matches for those rows only, as
     ``(rows, cols, sims)`` in corpus positions.
 
-    Its hash block is this rank's right block; the exact blocks gather
-    once; every rank rebuilds the full left hash from them and scans it
-    against its block at the complete per-tile width (k_tile = tile), and
-    receives its own rows' candidates from every peer (:func:`_phase1_scan`).
-    Rows whose drop bound could still matter escalate as ONE union
-    re-match at the provably complete width -- the union gathers first, so
-    every rank runs the same collectives.  ``cand_c0`` overrides the
-    initial candidate width (tests force the escalation with it)."""
-    dev = resolve_device(device)
+    ``mesh`` (a ``parallel.Mesh`` of ``device``'s type, the same size on
+    every rank) gives the rank several device slots -- the counterpart of
+    the JAX tier's ``jax.devices()``; without it the rank has one slot,
+    ``device``.  The rank's hash block splits into one sub-block per slot;
+    the exact blocks gather once; every rank rebuilds the full left hash
+    from them and scans it against each slot's sub-block at the complete
+    per-tile width (k_tile = tile), and receives its own rows' candidates
+    from every peer (:func:`_phase1_scan`).  Rows whose drop bound could
+    still matter escalate as ONE union re-match at the provably complete
+    width -- the union gathers first, so every rank runs the same
+    collectives.  ``cand_c0`` overrides the initial candidate width (tests
+    force the escalation with it)."""
+    slots = _rank_slots(mesh, resolve_device(device))
     n_local = local_ell.n_rows
     pid, nproc = _world()
+    k = len(slots)
+    n_dev = nproc * k
 
-    # Per-rank shard size (rows), padded to whole tiles.  The capacity
-    # check is COLLECTIVE: row counts gather first, so an oversized shard
-    # raises on every rank.
-    per_dev = -(-max(-(-n_total // nproc), 8) // tile) * tile
+    # Per-device shard size (rows), padded to whole tiles, and the rank's
+    # k of them.  The capacity check is COLLECTIVE: row counts gather
+    # first, so an oversized shard raises on every rank.
+    per_dev = -(-max(-(-n_total // n_dev), 8) // tile) * tile
+    n_pad_local = per_dev * k
     local_ell.wait_ready()
     g = _allgather_host(np.array([n_local, shard_row0], np.int64))
     counts, row0s = g[:, 0], g[:, 1]
-    if int(counts.max()) > per_dev:
+    if int(counts.max()) > n_pad_local:
         raise ValueError(
             f"shard of {int(counts.max())} rows (rank "
             f"{int(counts.argmax())}) exceeds the per-rank padded capacity "
-            f"{per_dev} (n_total={n_total}, {nproc} ranks, tile={tile}): "
-            "shards must be balanced to ceil(n_total / world) rows"
+            f"{n_pad_local} (n_total={n_total}, {nproc} ranks, {n_dev} "
+            f"devices, tile={tile}): shards must be balanced to "
+            "ceil(n_total / world) rows"
         )
-    b_loc = build_hash_matrix(local_ell, per_dev, hash_dim, dev)
+    b_slots = _slot_blocks(
+        build_hash_matrix(local_ell, n_pad_local, hash_dim, slots[0]), slots
+    )
 
     # Exact blocks: one bulk allgather.  Widths were agreed at encode; row
     # counts may differ per shard.
@@ -520,7 +571,10 @@ def multihost_match_shard(
     )
     # The left hash is a pure function of the exact blocks + the global
     # vocabulary: rebuilt here instead of a second collective.
-    a_hash = build_hash_matrix(full_ell, per_dev * nproc, hash_dim, dev)
+    a_hash = _slot_copies(
+        build_hash_matrix(full_ell, per_dev * n_dev, hash_dim, slots[0]),
+        b_slots,
+    )
     chunk = min(8, per_dev)
     cand_c = cand_c0 or initial_cand_c(
         min_similarity, max_n_matches, n_total, per_dev
@@ -533,11 +587,13 @@ def multihost_match_shard(
     proc_starts = np.concatenate(([0], np.cumsum(counts)[:-1]))
 
     def map_cols(cols_h):
-        """Padded rank-block column ids -> global corpus ids."""
-        proc_of = np.minimum(cols_h // per_dev, nproc - 1)
-        within = cols_h - proc_of * per_dev
-        valid = (cols_h >= 0) & (within < counts[proc_of])
-        return np.where(valid, proc_starts[proc_of] + within, -1)
+        """Padded-device-space column ids -> global corpus ids."""
+        dev_of = cols_h // per_dev
+        within = cols_h % per_dev
+        proc_of = np.minimum(dev_of // k, nproc - 1)
+        within_proc = (dev_of % k) * per_dev + within
+        valid = (cols_h >= 0) & (within_proc < counts[proc_of])
+        return np.where(valid, proc_starts[proc_of] + within_proc, -1)
 
     def score_select(cols_h, row_ids_local):
         """Exact rescore + per-row top-n for a set of OWNED rows."""
@@ -552,7 +608,8 @@ def multihost_match_shard(
         )
 
     cols_my, bound_my, _tmax = _phase1_scan(
-        a_hash, b_loc, thr, row0s, counts, cand_c=cand_c, k_tile=tile, **geom
+        a_hash, b_slots, thr, row0s, counts, cand_c=cand_c, k_tile=tile,
+        **geom,
     )
     r_s, c_s, s_s, kept_q, row_cut = score_select(
         cols_my, np.arange(n_local, dtype=np.int64)
@@ -574,8 +631,8 @@ def multihost_match_shard(
             union, np.concatenate((row0s, [row0s[-1] + counts[-1]]))
         )
         cols_esc, bound_esc, _te = _phase1_scan(
-            a_hash[torch.as_tensor(union, device=dev)], b_loc, thr,
-            u_starts, u_counts, cand_c=per_dev, k_tile=tile, **geom,
+            _rows_of(a_hash, union), b_slots, thr, u_starts, u_counts,
+            cand_c=per_dev, k_tile=tile, **geom,
         )
         if not _all_ranks_agree(not np.isfinite(bound_esc).any()):
             raise AssertionError(
@@ -733,12 +790,18 @@ def multihost_sharded_fit_pairs(
     Phase 1 starts with the single-device heuristic (closed-form kt = 2 on
     thresholded corpora: ``p1_fused_closed2`` on the card), and unsafe rows
     climb a ladder of wider (candidates, k_tile) stages ending at the
-    provably complete width, in lock-step on every rank."""
+    provably complete width, in lock-step on every rank.
+
+    ``config.mesh`` gives each rank its device slots (the same number on
+    every rank): the rank's right block splits into one sub-block per slot
+    and the geometry is the JAX tier's at ``n_dev = world x k``."""
     t: dict = {}
     t0 = time.perf_counter()
     is_self = duplicates is None
     pid, nproc = _world()
-    dev = resolve_device(config.device)
+    slots = _rank_slots(config.mesh, resolve_device(config.device))
+    k = len(slots)
+    n_dev = nproc * k
     n_m = len(master)
     right_series = master if is_self else duplicates
     n_right = len(right_series)
@@ -782,25 +845,28 @@ def multihost_sharded_fit_pairs(
         t["match_s"] = 0.0
         return _finish(_empty_pairs(), 0, n_m, is_self, config, t)
 
-    # --- phase 1: a right hash block per rank, the left hash replicated.
+    # --- phase 1: a right hash block per rank (one sub-block per slot),
+    # the left hash replicated onto every slot device.
     hash_dim = config.hash_dim
     tile = min(
         config.right_tile,
-        max(8, -(-max(-(-n_right // nproc), 8) // 8) * 8),
+        max(8, -(-max(-(-n_right // n_dev), 8) // 8) * 8),
     )
-    pad_local_r = -(-max(-(-n_right // nproc), 8) // tile) * tile
+    per_dev_r = -(-max(-(-n_right // n_dev), 8) // tile) * tile
+    pad_local_r = per_dev_r * k
     if int(right_counts.max()) > pad_local_r:
         raise ValueError(
             f"right shard of {int(right_counts.max())} rows exceeds the "
             f"per-rank padded capacity {pad_local_r}"
         )
     local_ell.wait_ready()
-    b_local = build_hash_matrix(right_ell, pad_local_r, hash_dim, dev)
+    b_local = build_hash_matrix(right_ell, pad_local_r, hash_dim, slots[0])
+    b_slots = _slot_blocks(b_local, slots)
 
     # Left scan-chunk rows: the single-device chunk on the card, tiny on
     # the CPU where per-step work must stay small.
-    chunk = min(4096 if dev.type == "cuda" else 8, pad_local_r)
-    pad_local_l = -(-max(-(-n_m // nproc), 8) // chunk) * chunk
+    chunk = min(4096 if slots[0].type == "cuda" else 8, per_dev_r)
+    pad_local_l = -(-max(-(-n_m // n_dev), 8) // chunk) * chunk * k
     if int(left_counts.max()) > pad_local_l:
         raise ValueError(
             f"left shard of {int(left_counts.max())} rows exceeds the "
@@ -808,26 +874,29 @@ def multihost_sharded_fit_pairs(
         )
     a_local = (
         b_local if is_self and pad_local_l == pad_local_r
-        else build_hash_matrix(left_ell, pad_local_l, hash_dim, dev)
+        else build_hash_matrix(left_ell, pad_local_l, hash_dim, slots[0])
     )
     n_left_pad = -(-n_m // chunk) * chunk
-    a_dense = _replicate_rows(a_local, left_counts, n_left_pad)
+    a_dense = _slot_copies(
+        _replicate_rows(a_local, left_counts, n_left_pad), b_slots
+    )
+    del b_local, a_local
 
-    # Candidate width is CAPPED: the per-rank candidate matrix is
+    # Candidate width is CAPPED: the per-slot candidate matrix is
     # (n_left_pad, cand_c) int32, uncapped it scales with the corpus
     # itself.  Rows whose top-C truncates report a finite drop bound and
     # settle in the ladder, so the cap never costs exactness.
     cand_c = min(
-        initial_cand_c(min_similarity, max_n_eff, n_right, pad_local_r),
+        initial_cand_c(min_similarity, max_n_eff, n_right, per_dev_r),
         _SHARDED_CAND_CAP,
-        pad_local_r,
+        per_dev_r,
     )
     thr = float(effective_threshold(min_similarity))
     # Initial extraction width: the single-device heuristic (closed-form
     # kt = 2 on thresholded corpora); the ladder restores completeness.
     kt0 = initial_k_tile(min_similarity, tile, cand_c)
     cols_my, bound_my, tmax_my = _phase1_scan(
-        a_dense, b_local, thr, left_starts[:-1], left_counts, tile=tile,
+        a_dense, b_slots, thr, left_starts[:-1], left_counts, tile=tile,
         chunk=chunk, cand_c=cand_c, k_tile=kt0,
     )
     t["p1_s"] = time.perf_counter() - t0
@@ -865,7 +934,7 @@ def multihost_sharded_fit_pairs(
 
     # --- escalation LADDER: unsafe rows re-match at widening
     # (cand, k_tile) stages, ending at the provably complete width
-    # (cand = per-rank rows, k_tile = tile).  The unsafe union gathers per
+    # (cand = per-device rows, k_tile = tile).  The unsafe union gathers per
     # stage, stage continuation is a global condition, and every rank runs
     # the identical batch sequence; each batch's per-tile extraction stack
     # stays (n_tiles, batch, kt) instead of (n_tiles, corpus, tile).
@@ -874,31 +943,31 @@ def multihost_sharded_fit_pairs(
         bound_my, kept_q, row_cut, qual_low, max_n_eff
     )
     # Rung plan: per-tile widths clamp to at least kt0, candidates widen
-    # toward the per-rank cap, the complete width is always last.  Rows are
+    # toward the per-device cap, the complete width is always last.  Rows are
     # ASSIGNED to the first rung whose kt covers their device-reported
     # per-tile maximum (tmax is a property of the data), so no row climbs a
     # rung that provably cannot settle it.
     stages = []
-    if kt0 < tile or cand_c < pad_local_r:
+    if kt0 < tile or cand_c < per_dev_r:
         prev = (cand_c, kt0)
         for mid_cand, mid_kt in (
-            (min(max(cand_c * 4, 256), pad_local_r), min(max(8, kt0), tile)),
+            (min(max(cand_c * 4, 256), per_dev_r), min(max(8, kt0), tile)),
             (
-                min(max(cand_c * 16, 1024), pad_local_r),
+                min(max(cand_c * 16, 1024), per_dev_r),
                 min(max(32, kt0), tile),
             ),
         ):
             wider = mid_cand > prev[0] or mid_kt > prev[1]
-            if wider and (mid_cand < pad_local_r or mid_kt < tile):
+            if wider and (mid_cand < per_dev_r or mid_kt < tile):
                 stages.append((mid_cand, mid_kt))
                 prev = (mid_cand, mid_kt)
-    stages.append((pad_local_r, tile))
-    n_tiles_dev = max(pad_local_r // tile, 1)
+    stages.append((per_dev_r, tile))
+    n_tiles_dev = max(per_dev_r // tile, 1)
     n_uns0 = _allgather_host(np.array([int(unsafe.sum())], np.int64))
     t["esc_rows"] = int(n_uns0.sum())  # unique escalated rows, all ranks
     touched_all = np.zeros(n_ll, dtype=bool)
     for si, (cand_s, kt_s) in enumerate(stages):
-        complete = cand_s >= pad_local_r and kt_s >= tile
+        complete = cand_s >= per_dev_r and kt_s >= tile
         eligible = unsafe if complete else (unsafe & (tmax_my <= kt_s))
         # Per-stage scan-chunk rows: the tile scan stacks (n_tiles, chunk,
         # kt) intermediates, so wide-kt stages take narrow chunks.
@@ -918,7 +987,7 @@ def multihost_sharded_fit_pairs(
         union = np.unique(np.concatenate(_allgather_ragged(my_unsafe)))
         # Batch rows so the per-dispatch extraction stack (~2 copies of
         # (n_tiles, batch, kt) f32 + i32) stays under ~0.5 GB.
-        per_row_b = 16 * n_tiles_dev * kt_s + 4 * nproc * cand_s
+        per_row_b = 16 * n_tiles_dev * kt_s + 4 * n_dev * cand_s
         batch = max(
             chunk_esc,
             (1 << 29) // max(per_row_b, 1) // chunk_esc * chunk_esc,
@@ -928,7 +997,7 @@ def multihost_sharded_fit_pairs(
             ub = union[b0:b0 + batch]
             u_starts, u_counts = _batch_owners(ub, left_starts)
             cols_b, bound_b, _tmax_b = _phase1_scan(
-                a_dense[torch.as_tensor(ub, device=dev)], b_local, thr,
+                _rows_of(a_dense, ub), b_slots, thr,
                 u_starts, u_counts, tile=tile, chunk=chunk_esc,
                 cand_c=cand_s, k_tile=kt_s,
             )
@@ -952,7 +1021,7 @@ def multihost_sharded_fit_pairs(
         )
         cols_mine = (
             np.concatenate(cols_parts) if cols_parts
-            else np.zeros((0, nproc * cand_s), dtype=np.int32)
+            else np.zeros((0, n_dev * cand_s), dtype=np.int32)
         )
         # Every rank runs the ring (score_select is collective), even with
         # zero own rows this stage.
@@ -1177,22 +1246,46 @@ def _empty_pairs() -> MatchPairs:
     )
 
 
-def _check_mesh_everywhere(mesh, dev: torch.device) -> None:
-    """Validate ``mesh`` on EVERY rank (empty-slice ranks included) and
-    raise on all of them when any fails: a raise on some ranks while the
-    others go on into the pair gather would hang the job."""
-    err = None
-    try:
-        validate_mesh(mesh, dev)
-    except Exception as e:  # re-raised below, after the agreement
-        err = e
-    if not _all_ranks_agree(err is None):
+def _check_mesh_everywhere(mesh, dev: torch.device) -> np.ndarray:
+    """Validate ``mesh`` (None: no mesh) on EVERY rank, empty-slice ranks
+    included, and raise on all of them when any fails: a raise on some
+    ranks while the others go on into the next collective would hang the
+    job.  Every rank makes the same one collective, mesh or not.  Returns
+    each rank's slot count (1 without a mesh)."""
+    err, k = None, 1
+    if mesh is not None:
+        try:
+            validate_mesh(mesh, dev)
+            k = mesh.devices.size
+        except Exception as e:  # re-raised below, after the agreement
+            err = e
+    g = _allgather_host(np.array([int(err is None), k], np.int64))
+    if not g[:, 0].min():
         if err is not None:
             raise err
         raise ValueError(
-            "multihost + mesh: the mesh is invalid on another rank (each "
-            "rank runs its own mesh matcher on its left-row slice)"
+            "multihost + mesh: the mesh is invalid on another rank"
         )
+    return g[:, 1]
+
+
+def _rank_slots(mesh, dev: torch.device) -> list:
+    """This rank's device slots in the sharded tiers: ``mesh``'s devices
+    flattened in (dp, mp) row-major order, or ``[dev]`` without a mesh.
+    The mesh is validated on every rank and the slot count ``k`` agreed:
+    the geometry (``n_dev = world x k``) needs one ``k`` everywhere, so
+    differing counts raise on every rank together."""
+    ks = _check_mesh_everywhere(mesh, dev)
+    if (ks != ks[0]).any():
+        rank = _world()[0]
+        raise ValueError(
+            f"multihost='sharded' + mesh: the ranks' device slot counts "
+            f"differ: this rank (rank {rank}) has {int(ks[rank])}, rank "
+            f"{int(np.flatnonzero(ks != ks[rank])[0])} has "
+            f"{int(ks[ks != ks[rank]][0])} (per rank: {ks.tolist()}); every "
+            "rank needs a mesh of the same size"
+        )
+    return [dev] if mesh is None else list(mesh.devices.flat)
 
 
 def multihost_fit_pairs(
@@ -1239,8 +1332,7 @@ def multihost_fit_pairs(
     n_right = len(right_series)
     max_n = n_right if config.max_n_matches is None else config.max_n_matches
     _per_l, lo_l, hi_l = _shard_bounds(n_m, nproc, pid)
-    if config.mesh is not None:
-        _check_mesh_everywhere(config.mesh, dev)
+    _check_mesh_everywhere(config.mesh, dev)
     if hi_l > lo_l:
         left_slice = _slice_ell(full_master, lo_l, hi_l)
         kwargs = dict(

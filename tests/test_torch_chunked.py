@@ -37,7 +37,7 @@ def passes(monkeypatch):
     """Let the chunked branch engage on the CPU; record every chained pass
     as (col_off, chunk rows)."""
     monkeypatch.setattr(TM, "_CHUNKED_P1_MIN_ROWS", 1000)
-    monkeypatch.setattr(TM, "_chunked_device_ok", lambda device: True)
+    monkeypatch.setattr(TM, "_on_card", lambda device: True)
     monkeypatch.delenv("SG_TPU_CHUNKED_P1", raising=False)
     monkeypatch.delenv("SG_TPU_CHUNKED_P1_GROUPS", raising=False)
     seen = []
@@ -141,5 +141,5 @@ def test_engine_prefetches_when_the_matcher_declines(passes, monkeypatch):
 def test_chunked_knob_off_by_default(monkeypatch):
     monkeypatch.delenv("SG_TPU_CHUNKED_P1", raising=False)
     ell = TfidfEncoder(StringGrouperConfig()).fit_transform(CORPUS)
-    monkeypatch.setattr(TM, "_chunked_device_ok", lambda device: True)
+    monkeypatch.setattr(TM, "_on_card", lambda device: True)
     assert not TM.chunked_p1_will_engage(ell, True, 0.8, 20, 512, 256, 256, "cpu")

@@ -19,7 +19,10 @@ nearest-match entry points must give the CPU's frames, and the torch op
 ``_cc_labels`` on the card the native union-find's labels, bitwise.  Under
 ``mesh=`` (virtual meshes over the card, and ``make_mesh()``) the fits
 must give the CPU's frames with the kernels launched; under ``multihost``
-(world 1, and two gloo ranks both on ``cuda:0``) the card's default frame.
+(world 1, and two gloo ranks both on ``cuda:0``; the sharded tier also over
+a virtual mesh's device slots) the card's default frame.  Under
+``SG_TPU_FUSED=0`` the card launches no ``p1_fused_closed2`` and gives the
+same frame; the torch op ``hashed_projection`` gives the CPU's bits.
 """
 
 import numpy as np
@@ -482,3 +485,46 @@ def test_two_ranks_on_one_card_equal_frames(dev):
         for ln in lines:
             assert ln[1] == str(r)
             assert json.loads(" ".join(ln[3:]))["p1_fused_closed2"] > 0, ln
+
+
+@pytest.mark.parametrize("dp,mp", [(1, 2), (2, 2)])
+def test_sharded_slots_card_equals_default(dev, dp, mp):
+    """The sharded tier over a virtual mesh's slots (world 1, so dp x mp
+    devices): the default card frame, ``p1_fused_closed2`` launched once
+    per slot on the first (kt = 2) pass."""
+    from string_grouper_tpu_torch.parallel import Mesh
+
+    s = pd.Series(synthetic_company_names(8192, seed=23))
+    want = sgt.match_strings(s)
+    K.reset_launches()
+    got = sgt.match_strings(s, multihost="sharded",
+                            mesh=Mesh([[dev] * mp for _ in range(dp)]))
+    assert K.LAUNCHES["p1_fused_closed2"] == dp * mp, K.LAUNCHES
+    pd.testing.assert_frame_equal(got, want, check_exact=True)
+
+
+def test_fused_switch_off_launches_no_kernel(dev, monkeypatch):
+    """``SG_TPU_FUSED=0``: the torch-op body everywhere, the same frame."""
+    s = pd.Series(synthetic_company_names(5000, seed=29))
+    K.reset_launches()
+    want = sgt.match_strings(s)
+    assert K.LAUNCHES["p1_fused_closed2"] > 0, K.LAUNCHES
+    monkeypatch.setenv("SG_TPU_FUSED", "0")
+    K.reset_launches()
+    got = sgt.match_strings(s)
+    assert K.LAUNCHES["p1_fused_closed2"] == 0, K.LAUNCHES
+    pd.testing.assert_frame_equal(got, want, check_exact=True)
+
+
+def test_hashed_projection_card_equals_cpu(dev):
+    """The torch op ``hashed_projection`` (one ``scatter_add_`` per slot
+    column): the card's f32 sums bitwise the CPU's."""
+    from string_grouper_tpu_torch.ops.hashing import hashed_projection
+
+    ell = TfidfEncoder(StringGrouperConfig()).fit_transform(
+        synthetic_company_names(3000, seed=31)).wait_ready()
+    ids = torch.from_numpy(ell.ids)
+    vals = torch.from_numpy(ell.vals64.astype(np.float32))
+    want = hashed_projection(ids, vals, 512)
+    got = hashed_projection(ids.to(dev), vals.to(dev), 512).cpu()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))

@@ -1,8 +1,8 @@
 """The port stands alone: importing ``string_grouper_tpu_torch`` (its
 multi-process tiers included) pulls in neither JAX nor the JAX package, no
-module of the port (nor chip_smoke.py, nor the port's multi-process test
-workers) imports either, and the default device without a GPU raises instead of
-quietly running on the CPU."""
+module of the port (nor chip_smoke.py, the scripts in tools/, nor the
+port's multi-process test workers) imports either, and the default device
+without a GPU raises instead of quietly running on the CPU."""
 
 import ast
 import subprocess
@@ -35,6 +35,7 @@ def test_import_leaves_jax_and_jax_package_out():
         "import sys, string_grouper_tpu_torch, string_grouper_tpu_torch.ops.kernels\n"
         "import string_grouper_tpu_torch.parallel\n"
         "import string_grouper_tpu_torch.parallel.multihost\n"
+        "import string_grouper_tpu_torch.ops.hashing\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'string_grouper_tpu')]\n"
         "print(repr(bad))\n"
@@ -48,7 +49,7 @@ def test_import_leaves_jax_and_jax_package_out():
 
 @pytest.mark.parametrize(
     "path",
-    sorted(PORT.rglob("*.py")) + [
+    sorted(PORT.rglob("*.py")) + sorted((ROOT / "tools").glob("*.py")) + [
         ROOT / "chip_smoke.py",
         ROOT / "tests" / "torch_mh_worker.py",
         ROOT / "tests" / "torch_mh_engine_worker.py",

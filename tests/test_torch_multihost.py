@@ -14,7 +14,8 @@ single-process results on the same input:
     to JAX's matcher over the whole corpus;
   * every engine frame (self, cross with ids, groups, top-1, float32,
     sharded self and cross, a corpus smaller than the world, the sharded
-    ladder) equal to JAX's frame, exactly.
+    ladder, and the sharded self, cross and ladder over 2 cpu device slots
+    per rank) equal to JAX's frame, exactly.
 """
 
 import os
@@ -38,7 +39,8 @@ import torch_mh_worker as SW
 
 HERE = Path(__file__).resolve().parent
 ENGINE_CASES = ("self", "cross", "groups", "top1", "f32", "sharded",
-                "sharded_cross", "tiny", "ladder")
+                "sharded_cross", "tiny", "ladder", "sharded_slots",
+                "sharded_cross_slots", "ladder_slots")
 
 
 def _free_port() -> str:
@@ -84,9 +86,20 @@ def test_two_rank_shard_pipeline_equals_jax(tmp_path, ngram, n):
     each rank's encode block bitwise JAX's single-process fit rows, its
     pairs (wide, and escalated with cand_c0=2) JAX's matcher's for its
     rows.  9-grams over ASCII need 72 bits: the byte-key vocabulary path."""
+    _shard_pipeline(tmp_path, ngram, n, 1)
+
+
+def test_two_rank_shard_pipeline_two_slots_equals_jax(tmp_path):
+    """The same with 2 cpu device slots per rank (``mesh=``): 4 devices,
+    the JAX worker's 2 per process."""
+    _shard_pipeline(tmp_path, 3, 120, 2)
+
+
+def _shard_pipeline(tmp_path, ngram, n, slots):
     run_ranks("torch_mh_worker.py", 2, tmp_path,
               ("WORKER_ENCODE_OK", "WORKER_OK", "WORKER_ESC_OK"),
-              env={"MH_NGRAM": str(ngram), "MH_N": str(n)})
+              env={"MH_NGRAM": str(ngram), "MH_N": str(n),
+                   "MH_SLOTS": str(slots)})
     full = SW.corpus(n)
     cfg = JConfig(min_similarity=SW.MIN_SIM, ngram_size=ngram)
     enc = JEncoder(cfg)
@@ -125,7 +138,7 @@ def _jax_frames(n: int) -> dict:
                           + list(EW.names(30, seed=9)))
     self_df = sgj.match_strings(series, min_similarity=0.6)
     cross = sgj.match_strings(series, dup, ids, dids, min_similarity=0.5)
-    return {
+    frames = {
         "self": self_df,
         "cross": cross,
         "groups": sgj.group_similar_strings(series, ids, min_similarity=0.6),
@@ -138,17 +151,23 @@ def _jax_frames(n: int) -> dict:
                                   min_similarity=0.5),
         "ladder": sgj.match_strings(dup_heavy, min_similarity=0.5),
     }
+    frames.update(sharded_slots=frames["self"],
+                  sharded_cross_slots=frames["cross"],
+                  ladder_slots=frames["ladder"])
+    return frames
 
 
 @pytest.mark.parametrize("world,n", [(2, 240), (3, 150)])
 def test_ranks_engine_frames_equal_jax(tmp_path, world, n):
     """The engine under 2 and 3 gloo ranks (auto-selected replicated tier,
-    forced sharded tier; 150 rows over 3 ranks gives uneven shards): every
+    forced sharded tier, the sharded tier over 2 cpu slots per rank, and
+    slot counts that differ between ranks, which must raise on every rank;
+    150 rows over 3 ranks gives uneven shards): every
     rank's frame equals the port's single-process frame (asserted in the
     worker) and JAX's single-process frame, exactly."""
     run_ranks("torch_mh_engine_worker.py", world, tmp_path,
               tuple(f"ENGINE_{c.upper()}_OK" for c in ENGINE_CASES)
-              + ("ENGINE_OK",),
+              + ("ENGINE_SLOTS_MISMATCH_OK", "ENGINE_OK"),
               env={"MH_ENGINE_N": str(n)})
     want = _jax_frames(n)
     for case in ENGINE_CASES:

@@ -318,7 +318,7 @@ def test_device_encode_off_skips_prefetch_and_chunking(monkeypatch):
         synthetic_company_names(6300))
     assert ell.device_src is not None
     monkeypatch.setattr(TM, "_CHUNKED_P1_MIN_ROWS", 1000)
-    monkeypatch.setattr(TM, "_chunked_device_ok", lambda device: True)
+    monkeypatch.setattr(TM, "_on_card", lambda device: True)
     monkeypatch.setenv("SG_TPU_CHUNKED_P1", "1")
     args = (ell, True, 0.8, 20, 512, 256, 256, "cpu")
     assert TM.chunked_p1_will_engage(*args)

@@ -10,7 +10,11 @@ every rank gets the identical full output, which this worker holds against
 the port's own single-process frame (``multihost=False``).  It writes each
 frame to ``<out_dir>/<case>_<rank>.pkl`` for the test to hold against the
 JAX package, and prints 'ENGINE_<CASE>_OK <rank>' per case, then
-'ENGINE_OK <rank>'.  Every rank runs on the CPU.  Imports only the port.
+'ENGINE_OK <rank>'.  The sharded tier also runs with 2 cpu device slots
+per rank (``mesh=``, the JAX worker's 2 devices per process), and with 1
+slot on rank 0 beside 2 on the others, which must raise on every rank
+('ENGINE_SLOTS_MISMATCH_OK <rank>').  Every rank runs on the CPU.  Imports
+only the port.
 """
 
 import os
@@ -25,6 +29,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import string_grouper_tpu_torch as sgt  # noqa: E402
 from string_grouper_tpu_torch import StringGrouper  # noqa: E402
+from string_grouper_tpu_torch.parallel import make_mesh  # noqa: E402
 
 
 def names(n, seed):
@@ -148,6 +153,30 @@ def run(rank, world, out_dir):
         sg_esc.timings.seconds)
     case("ladder", sg_esc.get_matches(), lambda: sgt.match_strings(
         dup_heavy, min_similarity=0.5, multihost=False, **kw), sg_esc)
+
+    # the sharded tier over 2 device slots per rank: n_dev = 2 x world
+    slots = dict(kw, multihost="sharded", mesh=make_mesh(2, device="cpu"))
+    sg_sl = StringGrouper(series, min_similarity=0.6, **slots).fit()
+    case("sharded_slots", sg_sl.get_matches(), lambda: sgt.match_strings(
+        series, min_similarity=0.6, multihost=False, **kw), sg_sl)
+    case("sharded_cross_slots", sgt.match_strings(
+        series, dup, ids, dids, min_similarity=0.5, **slots),
+        lambda: sgt.match_strings(series, dup, ids, dids, min_similarity=0.5,
+                                  multihost=False, **kw))
+    sg_esc2 = StringGrouper(dup_heavy, min_similarity=0.5, **slots).fit()
+    assert sg_esc2.timings.seconds.get("match.mh_esc_rows", 0) > 0
+    case("ladder_slots", sg_esc2.get_matches(), lambda: sgt.match_strings(
+        dup_heavy, min_similarity=0.5, multihost=False, **kw), sg_esc2)
+
+    # slot counts that differ between ranks raise on every rank, no hang
+    mixed = dict(slots, mesh=None if rank == 0 else slots["mesh"])
+    try:
+        sgt.match_strings(series, min_similarity=0.6, **mixed)
+    except ValueError as e:
+        assert "slot counts differ" in str(e), e
+        print(f"ENGINE_SLOTS_MISMATCH_OK {rank} {e}", flush=True)
+    else:
+        raise AssertionError("differing slot counts did not raise")
     print(f"ENGINE_OK {rank}", flush=True)
 
 

@@ -9,7 +9,8 @@ locally purely to build the verification oracle (the port's single-process
 encoder and matcher).  Writes its encode block and pair lists to
 ``<out_dir>/shard_<rank>.npz`` for the test to hold against the JAX package,
 and prints 'WORKER_ENCODE_OK <rank>', 'WORKER_OK <rank>' and
-'WORKER_ESC_OK <rank>'.  Imports only the port.
+'WORKER_ESC_OK <rank>'.  ``MH_SLOTS=k`` gives each rank k cpu device slots
+(``mesh=``).  Imports only the port.
 """
 
 import os
@@ -27,6 +28,7 @@ from string_grouper_tpu_torch.ops.matcher import (  # noqa: E402
     _pad_width,
     topn_cosine_matches,
 )
+from string_grouper_tpu_torch.parallel import make_mesh  # noqa: E402
 from string_grouper_tpu_torch.parallel.multihost import (  # noqa: E402
     multihost_encode_shard,
     multihost_match_shard,
@@ -89,9 +91,11 @@ def run(rank, world, out_dir):
     np.testing.assert_array_equal(lp.vals64, op.vals64[lo:hi])
     print(f"WORKER_ENCODE_OK {rank}", flush=True)
 
+    slots = int(os.environ.get("MH_SLOTS", "1"))
+    mesh = make_mesh(slots, device="cpu") if slots > 1 else None
     r_s, c_s, s_s = multihost_match_shard(
         local_ell, lo, n_total, MIN_SIM, MAX_N, hash_dim=128, tile=8,
-        device="cpu",
+        device="cpu", mesh=mesh,
     )
     ref = topn_cosine_matches(
         oracle_ell, None, MIN_SIM, MAX_N, force_symmetries=False,
@@ -117,7 +121,7 @@ def run(rank, world, out_dir):
     # union re-match must restore the exact result
     r_e, c_e, s_e = multihost_match_shard(
         local_ell, lo, n_total, MIN_SIM, MAX_N, hash_dim=128, tile=8,
-        cand_c0=2, device="cpu",
+        cand_c0=2, device="cpu", mesh=mesh,
     )
     check(r_e, c_e, s_e, "escalated")
     print(f"WORKER_ESC_OK {rank}", flush=True)
