@@ -10,14 +10,23 @@ Phases (any failure raises and the script exits non-zero without a result):
 1. Device: the card's name and power limit;
    build the CUDA kernels from string_grouper_tpu_torch/csrc/ (one nvcc per
    source, all started together) and print the build time, and beside it
-   ``nvcc -Xptxas -v``'s registers, shared memory and spills for the three
+   ``nvcc -Xptxas -v``'s registers, shared memory and spills for the five
    kernels on the TMA/wgmma scan (no stack, no spills and no serialized
-   wgmma, or the phase fails).
+   wgmma, and ``p1_fused_closed2`` at its 168 registers, or the phase
+   fails).
 2. Kernel ``p1_fused_closed2`` against its plain PyTorch version on the
    card, on hash rows of the synthetic 663,000-name corpus (A 32,768 rows,
    B 131,072 rows, d 512, tile 4096, C 64, the default threshold): counts,
    tmax and ship sets equal, bounds within TOL, except rows with a score
    within TOL of the threshold or of another score (counted and printed).
+2c. The epilogue A/B kernels on phase 2's inputs: ``p1_mm_floor``'s counts
+   bitwise ``p1_fused_closed2``'s, and ``p1_closed2_variant`` under each of
+   its four switch pairs (block rows 128 / 64, argmax first / minidx)
+   bitwise ``p1_fused_closed2``'s outputs; each against its plain version
+   by phase 2's rule (rows with a score within TOL of thr excepted); then,
+   with the counts set to 0, each timed (CUDA events) beside its bound,
+   ``p1_fused_closed2`` and ``torch.mm``.  No path of the matcher launches
+   either: every main-path run below must count 0 of both.
 2b. Both scan kernels (``p1_fused_closed2``, ``p1_fused_chain``) against
    their plain versions over the rest of their domain: m = 256 and 300
    (ragged), d = 128, 256, 384 (the hash's first d columns, renormalised)
@@ -67,7 +76,10 @@ Phases (any failure raises and the script exits non-zero without a result):
    ``p1_fused_closed2`` launch (the torch-op body everywhere); and the
    torch op ``hashed_projection`` (ops/hashing.py, off the main path) on
    the card over the 20,000-name ELL, bitwise its CPU result, timed beside
-   its bytes bound and an ``index_add_`` yardstick.
+   its bytes bound and an ``index_add_`` yardstick.  Last, the 20,000-name
+   self-join under ``utils.profiling.trace``: the phase-4 frame, and a trace
+   file (under build/) holding CUDA kernel events of ``p1_fused_closed2``'s
+   library (``scan_kernel``).
 5. The full self-join at 663,000 names on the card: wall time, phases,
    escalation rungs, kernel launches, and the output row count.  On that
    run's grouper, with no refit: ``get_groups()`` (time, group count), and
@@ -79,7 +91,10 @@ Phases (any failure raises and the script exits non-zero without a result):
    frame, with p1_wait and wall printed.  Last, ``match_most_similar`` of
    the 663,000 names against 100,000 others: wall, phases, launches,
    100,000 output rows, and the verbatim check of
-   ``check_verbatim_duplicates``.
+   ``check_verbatim_duplicates``.  The whole phase runs with
+   ``torch.backends.cuda.matmul.allow_tf32`` set to True, and after it the
+   flag and ``torch.get_float32_matmul_precision()`` must still read what
+   was set (the matcher restores the caller's setting).
 6. The mesh tier (``mesh=``: the host encode, then phase 1 per
    (segment, shard) on each shard's device).  At 20,000 names
    ``match_strings`` under ``make_mesh()`` (every visible GPU) and under
@@ -162,8 +177,13 @@ CHUNKED_PATH = ("p1_fused_chain", "device_hash_codes")
 # whose hash is the torch op ``_device_hash``: device_hash_codes must stay 0.
 PACKED_PATH = ("p1_fused_closed2",)
 CUSTOM_REGEX = r"[,-./#&]|\s"
-# The three kernels on the TMA/wgmma scan (csrc/p1_scan_sm90.cuh).
-SCAN_KERNELS = ("p1_fused_closed2", "p1_fused_chain", "p1_tri_fused")
+# The five kernels on the TMA/wgmma scan (csrc/p1_scan_sm90.cuh).
+SCAN_KERNELS = ("p1_fused_closed2", "p1_fused_chain", "p1_tri_fused",
+                "p1_mm_floor", "p1_closed2_variant")
+# p1_fused_closed2's registers a thread (ptxas; 65,536 / 384 threads).
+CLOSED2_REGISTERS = 168
+# The epilogue's A/B kernels: no path of the matcher launches them.
+AB_KERNELS = ("p1_mm_floor", "p1_closed2_variant")
 # Rows of the 663k payload that phase 3 also hashes with the plain version
 # on the CPU.
 N_HASH_CPU = 20_000
@@ -208,6 +228,11 @@ def cuda_ms(fn, reps: int, warmup: bool = True) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def assert_off_path(launches, label):
+    """A main-path run launched neither of the epilogue's A/B kernels."""
+    assert all(launches[k] == 0 for k in AB_KERNELS), f"{label}: launches {launches}"
 
 
 def gpu_line() -> str:
@@ -286,6 +311,84 @@ def check_p1(K, h, thr, m=32_768, n=131_072):
         f"({flops / (ms * 1e-3) / 1e12} TFLOP/s)")
     return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by="operations", library_ms=lib_ms)
+
+
+# ----------------------------------------------------------------- phase 2c
+def compare_counts(what, got, want, a, b, thr):
+    """Per-row qualified counts of a kernel ``got`` against its plain
+    version's ``want``: equal, except rows with a score (against the
+    columns ``b``) within TOL of the threshold.  Returns the number of
+    those borderline rows."""
+    rows = torch.nonzero(got != want).flatten().tolist()
+    assert len(rows) <= 2000, f"{what}: {len(rows)} rows differ"
+    b64 = b.double()
+    for r in rows:
+        near = bool((((b64 @ a[r].double()) - thr).abs() <= TOL).any())
+        assert near, f"{what} row {r}: counts {int(got[r])} / {int(want[r])} with no score near thr"
+    return len(rows)
+
+
+def check_epilogue_ab(K, h, thr, m=32_768, n=131_072):
+    """Phase 2c: ``p1_mm_floor`` and ``p1_closed2_variant`` on phase 2's
+    inputs, bitwise ``p1_fused_closed2`` and against their plain versions;
+    then their A/B run (launches counted from 0), each timed beside its
+    bound, ``p1_fused_closed2`` and ``torch.mm``.  Returns their kernel
+    rows."""
+    tile, cand_c = 4096, 64
+    a = h[:m].contiguous()
+    b = h[:n].contiguous()
+    ref = K.p1_fused_closed2(a, b, thr, tile, cand_c)
+    floor = K.p1_mm_floor(a, b, thr)
+    torch.cuda.synchronize()
+    assert torch.equal(floor, ref[1]), "p1_mm_floor != p1_fused_closed2's counts"
+    nb_f = compare_counts("p1_mm_floor", floor, K.p1_mm_floor_plain(a, b, thr), a, b, thr)
+    err_v, nb_v = 0.0, 0
+    switches = [(r, t) for r in K.VARIANT_BLOCK_ROWS for t in K.VARIANT_ARGMAX]
+    for rows, tie in switches:
+        got = K.p1_closed2_variant(a, b, thr, tile, cand_c, rows, tie)
+        torch.cuda.synchronize()
+        for name, g, w in zip(("ship", "counts", "tmax", "bound", "max_cnt"), got, ref):
+            assert torch.equal(g, w), f"p1_closed2_variant {rows}/{tie} != p1_fused_closed2: {name}"
+        want = K.p1_closed2_variant_plain(a, b, thr, tile, cand_c, rows, tie)
+        err, nb = compare_scan(f"p1_closed2_variant {rows}/{tie}", got[:4], want[:4],
+                               a, b, thr)
+        err_v, nb_v = max(err_v, err), max(nb_v, nb)
+    log(f"epilogue A/B kernels vs p1_fused_closed2 (A {m} x B {n} x 512, tile {tile}, "
+        f"C {cand_c}): p1_mm_floor's counts bitwise its counts ({int(floor.sum())} "
+        f"qualified), p1_closed2_variant bitwise under {switches}; vs plain: "
+        f"p1_mm_floor {m - nb_f} rows equal, {nb_f} borderline; p1_closed2_variant "
+        f"equal but {nb_v} borderline rows, max |bound diff| {err_v}")
+
+    # the A/B run: the kernels' own path, counted from 0
+    K.reset_launches()
+    closed_ms = cuda_ms(lambda: K.p1_fused_closed2(a, b, thr, tile, cand_c), 5)
+    floor_ms = cuda_ms(lambda: K.p1_mm_floor(a, b, thr), 5)
+    var_ms = {f"{r}/{t}": cuda_ms(lambda r=r, t=t: K.p1_closed2_variant(
+        a, b, thr, tile, cand_c, r, t), 5) for r, t in switches}
+    launches = dict(K.LAUNCHES)
+    floor_plain_ms = cuda_ms(lambda: K.p1_mm_floor_plain(a, b, thr), 2)
+    var_plain_ms = cuda_ms(lambda: K.p1_closed2_variant_plain(
+        a, b, thr, tile, cand_c, 128, "minidx"), 2)
+    lib_ms = cuda_ms(lambda: torch.mm(a, b.t()), 3)
+    flops = 2.0 * m * n * 512
+    floor_bound = max(flops / PEAK_BF16, ((m + n) * 512 * 2 + m * 4) / PEAK_BYTES) * 1e3
+    var_bound = max(flops / PEAK_BF16,
+                    ((m + n) * 512 * 2 + m * cand_c * 4 + m * 12) / PEAK_BYTES) * 1e3
+    log(f"epilogue A/B (CUDA events, A {m} x B {n}): p1_fused_closed2 {closed_ms} ms, "
+        f"p1_mm_floor {floor_ms} ms (epilogue share {(closed_ms - floor_ms) / closed_ms}), "
+        f"p1_closed2_variant by block rows/argmax {json.dumps(var_ms)} ms; bound "
+        f"{var_bound} ms (operations); torch.mm bf16 {lib_ms} ms; plain p1_mm_floor "
+        f"{floor_plain_ms} ms, plain variant (128/minidx) {var_plain_ms} ms; launches {launches}")
+    assert launches["p1_mm_floor"] > 0 and launches["p1_closed2_variant"] > 0, launches
+    return (
+        # the other rows' counts are equal: no error to report
+        dict(launches=launches["p1_mm_floor"], max_abs_err=0.0, ms=floor_ms,
+             plain_ms=floor_plain_ms, bound_ms=floor_bound, bound_by="operations",
+             library_ms=lib_ms),
+        dict(launches=launches["p1_closed2_variant"], max_abs_err=err_v,
+             ms=var_ms["128/first"], plain_ms=var_plain_ms, bound_ms=var_bound,
+             bound_by="operations", library_ms=lib_ms, ms_by_switch=var_ms),
+    )
 
 
 # ------------------------------------------------------------------ phase 3
@@ -1165,6 +1268,7 @@ def main() -> int:
     from string_grouper_tpu_torch.parallel import distributed as D
 
     from string_grouper_tpu_torch.ops import hashing as TH
+    from string_grouper_tpu_torch.utils import profiling as PR
 
     dev = torch.device("cuda")
     card = gpu_line()
@@ -1184,6 +1288,8 @@ def main() -> int:
         assert "serialized" not in text and not re.search(
             r"[1-9]\d* bytes (spill|stack|cumulative stack)", text), \
             f"csrc/{name}.cu: stack, spills or serialized wgmma"
+    regs = re.findall(r"Used (\d+) registers", report["p1_fused_closed2"])
+    assert regs == [str(CLOSED2_REGISTERS)], f"p1_fused_closed2 registers {regs}"
 
     # ---- phases 2-3: kernels against their plain versions -----------------
     stamp("phases 2-3e: kernels against their plain versions")
@@ -1199,6 +1305,8 @@ def main() -> int:
     thr = float(M.effective_threshold(0.8))
     h, res_hash = check_hash(K, M, ell_full.device_src, dev)
     res_p1 = check_p1(K, h, thr)
+    stamp("phase 2c: the epilogue A/B kernels")
+    res_floor, res_variant = check_epilogue_ab(K, h, thr)
     dom_err = check_p1_domain(K, h, thr)
     res_p1["max_abs_err"] = max(res_p1["max_abs_err"], dom_err)
     torch.cuda.empty_cache()
@@ -1225,6 +1333,7 @@ def main() -> int:
     t_card = time.perf_counter() - t0
     launches = dict(K.LAUNCHES)
     assert all(launches[k] > 0 for k in DEFAULT_PATH), f"20k launches {launches}"
+    assert_off_path(launches, "20k default")
     t0 = time.perf_counter()
     cpu_df = sgt.match_strings(s20, device="cpu")
     t_cpu = time.perf_counter() - t0
@@ -1251,6 +1360,7 @@ def main() -> int:
         t_card = time.perf_counter() - t0
         launches = dict(K.LAUNCHES)
         assert all(launches[k] > 0 for k in PACKED_PATH), f"{label}: {launches}"
+        assert_off_path(launches, label)
         assert launches["device_hash_codes"] == 0, f"{label}: {launches}"
         t0 = time.perf_counter()
         cpu_df = sgt.match_strings(*args, device="cpu", **kw)
@@ -1279,6 +1389,7 @@ def main() -> int:
         t_card = time.perf_counter() - t0
         launches = dict(K.LAUNCHES)
         assert all(launches[k] > 0 for k in DEFAULT_PATH), f"{label}: {launches}"
+        assert_off_path(launches, label)
         t0 = time.perf_counter()
         cpu_out = fn(*args, device="cpu", **kw)
         t_cpu = time.perf_counter() - t0
@@ -1321,9 +1432,38 @@ def main() -> int:
     check_hashed_projection(TH, TfidfEncoder(StringGrouperConfig()).fit_transform(
         list(s20)).wait_ready(), dev)
 
+    # the trace: one 20k self-join under utils.profiling.trace
+    stamp("phase 4: a traced 20k self-join")
+    trace_dir = Path(__file__).resolve().parent / "build" / "chip_smoke_trace"
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    K.reset_launches()
+    t0 = time.perf_counter()
+    with PR.trace(log_dir=str(trace_dir)):
+        traced_df = sgt.match_strings(s20)
+    t_traced = time.perf_counter() - t0
+    pd.testing.assert_frame_equal(traced_df, frames4["default"])
+    trace_file = PR.trace_files(str(trace_dir))[-1]
+    events = PR.read_trace(trace_file)
+    scan = {k: v for k, v in PR.kernel_durations(events).items() if "scan_kernel" in k}
+    assert scan, "the trace holds no kernel event of p1_fused_closed2's library"
+    assert sum(len(v) for v in scan.values()) == K.LAUNCHES["p1_fused_closed2"], \
+        (scan.keys(), K.LAUNCHES)
+    busy = PR.union_us(PR.device_intervals(events)) / 1e6
+    log(f"traced self-join ({N_FRAME} names): equal to the card frame, {t_traced:.2f} s "
+        f"traced; {trace_file.name} ({trace_file.stat().st_size} bytes, {len(events)} "
+        f"events): {sum(len(v) for v in scan.values())} scan_kernel events "
+        f"({sum(map(sum, scan.values())) / 1e3:.3f} ms), device busy {busy:.3f} s")
+    del traced_df, events
+    shutil.rmtree(trace_dir, ignore_errors=True)
+
     # ---- phase 5: the full self-join, default, chunked and packed ----------
     stamp("phase 5: the 663k self-joins")
     s_full = pd.Series(names_full)
+    # the caller's TF32 setting: on through the phase, still on after it
+    tf32_before = (torch.backends.cuda.matmul.allow_tf32,
+                   torch.get_float32_matmul_precision())
+    torch.backends.cuda.matmul.allow_tf32 = True
+    tf32_set = (True, torch.get_float32_matmul_precision())
 
     def self_join(label, path):
         K.reset_launches()
@@ -1341,6 +1481,7 @@ def main() -> int:
             {k: (round(v, 4) if isinstance(v, float) else v)
              for k, v in secs.items()}))
         assert all(launches[k] > 0 for k in path), f"663k launches {launches}"
+        assert_off_path(launches, f"663k {label}")
         assert len(frame) == ROWS_FULL, f"{len(frame)} output rows, expected {ROWS_FULL}"
         assert np.isfinite(frame.similarity.to_numpy()).all()
         return frame, launches, grouper
@@ -1436,6 +1577,13 @@ def main() -> int:
     log("timings: " + json.dumps(
         {k: (round(v, 4) if isinstance(v, float) else v) for k, v in secs.items()}))
     del seen, nearest
+    assert_off_path(l_nearest, "663k match_most_similar")
+    tf32_after = (torch.backends.cuda.matmul.allow_tf32,
+                  torch.get_float32_matmul_precision())
+    assert tf32_after == tf32_set, f"TF32 setting {tf32_set} became {tf32_after}"
+    log(f"TF32: set to {tf32_set} (allow_tf32, precision) before the 663k calls, "
+        f"{tf32_after} after them: unchanged")
+    torch.set_float32_matmul_precision(tf32_before[1])
 
     # ---- phase 6: the mesh tier -------------------------------------------
     stamp("phase 6: the mesh tier at 20,000 names")
@@ -1451,6 +1599,7 @@ def main() -> int:
         t_mesh = time.perf_counter() - t0
         launches = dict(K.LAUNCHES)
         assert all(launches[k] > 0 for k in path), f"{label}: {launches}"
+        assert_off_path(launches, label)
         assert_same(got, want)
         log(f"{label}: equal to phase 4's card frame, {len(got)} rows; "
             f"{t_mesh:.2f} s; launches {launches}")
@@ -1497,6 +1646,7 @@ def main() -> int:
         {k: (round(v, 4) if isinstance(v, float) else v) for k, v in secs.items()}))
     assert all(l_mesh[k] > 0 for k in DEFAULT_PATH), f"mesh 663k launches {l_mesh}"
     assert l_mesh["p1_fused_closed2"] == want_p1, f"mesh 663k launches {l_mesh}"
+    assert_off_path(l_mesh, "663k mesh")
     assert len(frame) == ROWS_FULL, f"{len(frame)} output rows, expected {ROWS_FULL}"
     pd.testing.assert_frame_equal(frame, out)
     log("mesh self-join: frame equal to the default run's")
@@ -1534,6 +1684,7 @@ def main() -> int:
     for rec in recs:
         for label, l_rank in rec["launches"].items():
             assert l_rank["p1_fused_closed2"] > 0, (rec["rank"], label, l_rank)
+            assert_off_path(l_rank, f"rank {rec['rank']} {label}")
         full = rec["launches"][f"self-join {N_FULL} replicated"]
         assert full["device_hash_codes"] > 0, (rec["rank"], full)
         sc = rec["scan"]
@@ -1583,6 +1734,11 @@ def main() -> int:
              launches=launches["device_hash_codes"] + l_mesh["device_hash_codes"]
              + l_slots["device_hash_codes"],
              **res_hash),
+        dict(name="p1_mm_floor", route="cuda", source=src.format("p1_mm_floor"),
+             replaces="benchmarks/ab_p1_epilogue.py:66", **res_floor),
+        dict(name="p1_closed2_variant", route="cuda",
+             source=src.format("p1_closed2_variant"),
+             replaces="benchmarks/ab_p1_epilogue.py:161", **res_variant),
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -1,16 +1,23 @@
 // The fused phase-1 scan for Hopper (sm_90a), built on TMA, mbarriers and
-// wgmma, shared by three kernels:
+// wgmma, shared by five kernels:
 //   p1_fused_closed2.cu  one pass over the whole right corpus   (kClosed)
 //   p1_fused_chain.cu    one pass over a right column chunk,
 //                        resuming from the previous chunk's state (kChain)
 //   p1_tri_fused.cu      one segment of the triangular self-join: the row
 //                        side from the segment's first column on, plus
 //                        per-column statistics of the future columns (kTri)
+//   p1_mm_floor.cu       the product and the per-row qualified count only,
+//                        the floor under kClosed's epilogue       (kCount)
+//   p1_closed2_variant.cu  kClosed under two compile-time switches: the
+//                        tie rule of the argmax (TIE) and the left rows
+//                        of a block (ROWS, 128 or 64)
 // It replaces the Pallas kernels p1_fused_closed2, p1_fused_chain and the
 // scan of p1_tri_fused of the JAX package
 // (string_grouper_tpu/ops/pallas_kernels.py:117-179, :275-358 and
 // :631-726; bodies _p1_body :47-114, _p1_chain_body :183-257 and
-// _p1_tri_body :414-623).
+// _p1_tri_body :414-623), and the A/B probes mm_floor and variant of
+// benchmarks/ab_p1_epilogue.py (:65-88, body _mm_body :56-62; :160-200,
+// bodies _p1_body_minidx :92-157 and _p1_body).
 //
 // For one block of 128 left rows of A (m, d) bf16 against the walked right
 // columns B (n, d) bf16 it computes, per row and per logical tile of `tile`
@@ -90,6 +97,23 @@
 //   CUDA 12.5), so the libraries link no libcuda.  A failed encode returns
 //   kEncodeError + its CUresult.
 //
+// * The switches of p1_closed2_variant (kClosed only; the defaults are the
+//   shipped kernel).  TIE = kMinIdx is the probe's argmax: the maximum
+//   first, then the smallest column among the scores equal to it, then the
+//   maximum with that column masked -- per sub-block over the thread's
+//   columns, and again at each merge (into the open tile, across the quad).
+//   kFirst and kMinIdx define the same column, so the outputs are the same
+//   bits.  ROWS = 64: one consumer warpgroup (256 threads; no setmaxnreg,
+//   the 64K registers already give a thread 255), A's 64 rows take half the
+//   shared memory, so the ring deepens (8 stages at d = 512 against 6); each
+//   block still streams all of B, so B's L2 reads double for the same
+//   operations.
+// * kCount: the epilogue of a sub-block is the per-row maximum, and where
+//   it reaches thr a count of the thread's qualified scores into a
+//   per-thread counter; no tile state, no rank insert, no top-C buffers.
+//   The counters are summed across the quad once, after the walk.  The
+//   product's k order is kClosed's, so the counts are its bits.
+//
 // Left for later: wave quantization (one block of 128 rows per SM: 576
 // blocks on 132 SMs at the 663k segment, 4.36 waves); thread-block
 // clusters with TMA multicast of B to two SMs, which halves B's L2 traffic
@@ -108,14 +132,15 @@ namespace p1h {
 constexpr int BM = 128;         // left rows per block
 constexpr int BN = 128;         // right columns per sub-block
 constexpr int BK = 64;          // k per TMA box (128 bytes: one swizzle row)
-constexpr int NT = 384;         // 2 consumer warpgroups + 1 producer
-constexpr int BOX = BN * BK * 2;  // bytes of one box (A and B alike)
+constexpr int BOX = BN * BK * 2;  // bytes of one box of B (and of A's 128 rows)
 constexpr int MAX_STAGES = 8;
 constexpr int SMEM_LIMIT = 232448;  // a block's shared memory on the H100
 constexpr int kEncodeError = 10000;
 constexpr float NEG = -__builtin_huge_valf();
 
-enum Mode { kClosed = 0, kChain = 1, kTri = 2 };
+enum Mode { kClosed = 0, kChain = 1, kTri = 2, kCount = 3 };
+enum Tie { kFirst = 0, kMinIdx = 1 };  // p1_closed2_variant's argmax rule
+constexpr int NO_COL = 0x7fffffff;     // the column of an empty tile state
 
 struct Args {
   const __nv_bfloat16* A;  // (m, d) left rows
@@ -128,7 +153,7 @@ struct Args {
   float* v;       // (m, cand_c) running top-C values
   int* c;         // (m, cand_c) running top-C columns
   int* ship;      // kChain: (m, cand_c) output (kClosed masks c in place)
-  int* counts;    // kClosed, kChain: (m,) outputs
+  int* counts;    // kClosed, kChain, kCount: (m,) outputs
   int* tmax;
   float* bound;
   int* meta;      // kChain state (m, 3): [counts, tmax, nfin]
@@ -261,6 +286,18 @@ __device__ __forceinline__ void merge_top2(float& v, int& c, float& v2,
   }
 }
 
+// The same merge written as the probe's argmax (TIE = kMinIdx): the
+// maximum first, then the smallest column among the sides equal to it,
+// then the maximum of what is left once that column is masked.
+__device__ __forceinline__ void merge_minidx(float& v, int& c, float& v2,
+                                             float ov, int oc, float ov2) {
+  const float mx = fmaxf(v, ov);
+  const int cm = min(v == mx ? c : NO_COL, ov == mx ? oc : NO_COL);
+  v2 = fmaxf(c == cm ? v2 : v, oc == cm ? ov2 : ov);
+  v = mx;
+  c = cm;
+}
+
 __device__ __forceinline__ int warp_sum(int x) {
   for (int o = 16; o; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
   return x;
@@ -330,7 +367,7 @@ __device__ __forceinline__ void open_tile(Rows& r) {
   for (int h = 0; h < 2; ++h) {
     r.t_cnt[h] = 0;
     r.t_s1[h] = 0;
-    r.t_cm[h] = 0x7fffffff;
+    r.t_cm[h] = NO_COL;
     r.t_vm[h] = NEG;
     r.t_vm2[h] = NEG;
   }
@@ -385,18 +422,47 @@ __device__ __forceinline__ void col_flush(ColStage* cs, const Args& p,
 // Fold one sub-block's scores (accumulator layout) into the open tile:
 // column tcol0 + 8j + 2q + e sits in acc[4j + 2h + e].  COL (kTri,
 // future columns): each qualified score also goes to its column's
-// statistics in `cs`; `rloc` is the block-local row of h = 0.
-template <bool COL>
+// statistics in `cs`; `rloc` is the block-local row of h = 0.  TIE =
+// kMinIdx (p1_closed2_variant): the sub-block's maximum is mx, its column
+// the smallest with a score equal to it, then the masked second maximum,
+// merged into the tile by merge_minidx.
+template <bool COL, int TIE = kFirst>
 __device__ __forceinline__ void sub_block(Rows& r, const float (&acc)[64],
                                           float thr, int tcol0, int q,
                                           ColStage* cs, int rloc) {
+  static_assert(TIE == kFirst || !COL, "the column side takes the first argmax");
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     float mx = acc[2 * h];
 #pragma unroll
     for (int j = 0; j < 16; ++j)
       mx = fmaxf(mx, fmaxf(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]));
-    if (mx >= thr) {
+    if (TIE == kMinIdx && mx >= thr) {
+      int cm = NO_COL;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float x = acc[4 * j + 2 * h + e];
+          const int col = tcol0 + 8 * j + 2 * q + e;
+          if (x >= thr) {
+            ++r.t_cnt[h];
+            r.t_s1[h] += col;
+          }
+          if (x == mx) cm = min(cm, col);
+        }
+      }
+      float v2 = NEG;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float x = acc[4 * j + 2 * h + e];
+          if (x >= thr && tcol0 + 8 * j + 2 * q + e != cm) v2 = fmaxf(v2, x);
+        }
+      }
+      merge_minidx(r.t_vm[h], r.t_cm[h], r.t_vm2[h], mx, cm, v2);
+    } else if (TIE == kFirst && mx >= thr) {
 #pragma unroll
       for (int j = 0; j < 16; ++j) {
 #pragma unroll
@@ -421,21 +487,60 @@ __device__ __forceinline__ void sub_block(Rows& r, const float (&acc)[64],
   }
 }
 
+// kCount: the thread's qualified scores of the sub-block, into its
+// per-thread counters (summed across the quad after the walk).
+__device__ __forceinline__ void count_sub_block(Rows& r, const float (&acc)[64],
+                                                float thr) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float mx = acc[2 * h];
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+      mx = fmaxf(mx, fmaxf(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]));
+    if (mx >= thr) {
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+        r.counts[h] += (acc[4 * j + 2 * h] >= thr) + (acc[4 * j + 2 * h + 1] >= thr);
+    }
+  }
+}
+
 // Close the tile: merge across the quad, fold into the running counters,
 // rank-insert the warp's rows that have a qualified column.  `row_lo` is
 // the global row of h = 0 for this lane; `off` the tile's global column.
+template <int TIE = kFirst>
 __device__ __forceinline__ void close_tile(Rows& r, const Args& p, int row_lo,
                                           int off, int lane) {
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
+    if (TIE == kMinIdx) {
+      // the quad's maximum, then its smallest column, then the rest's max
+      float mx = r.t_vm[h];
 #pragma unroll
-    for (int o = 1; o <= 2; o <<= 1) {
-      r.t_cnt[h] += __shfl_xor_sync(0xffffffffu, r.t_cnt[h], o);
-      r.t_s1[h] += __shfl_xor_sync(0xffffffffu, r.t_s1[h], o);
-      const float ov = __shfl_xor_sync(0xffffffffu, r.t_vm[h], o);
-      const int oc = __shfl_xor_sync(0xffffffffu, r.t_cm[h], o);
-      const float ov2 = __shfl_xor_sync(0xffffffffu, r.t_vm2[h], o);
-      merge_top2(r.t_vm[h], r.t_cm[h], r.t_vm2[h], ov, oc, ov2);
+      for (int o = 1; o <= 2; o <<= 1) {
+        r.t_cnt[h] += __shfl_xor_sync(0xffffffffu, r.t_cnt[h], o);
+        r.t_s1[h] += __shfl_xor_sync(0xffffffffu, r.t_s1[h], o);
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+      }
+      int cm = r.t_vm[h] == mx ? r.t_cm[h] : NO_COL;
+#pragma unroll
+      for (int o = 1; o <= 2; o <<= 1) cm = min(cm, __shfl_xor_sync(0xffffffffu, cm, o));
+      float v2 = r.t_cm[h] == cm ? r.t_vm2[h] : r.t_vm[h];
+#pragma unroll
+      for (int o = 1; o <= 2; o <<= 1) v2 = fmaxf(v2, __shfl_xor_sync(0xffffffffu, v2, o));
+      r.t_vm[h] = mx;
+      r.t_cm[h] = cm;
+      r.t_vm2[h] = v2;
+    } else {
+#pragma unroll
+      for (int o = 1; o <= 2; o <<= 1) {
+        r.t_cnt[h] += __shfl_xor_sync(0xffffffffu, r.t_cnt[h], o);
+        r.t_s1[h] += __shfl_xor_sync(0xffffffffu, r.t_s1[h], o);
+        const float ov = __shfl_xor_sync(0xffffffffu, r.t_vm[h], o);
+        const int oc = __shfl_xor_sync(0xffffffffu, r.t_cm[h], o);
+        const float ov2 = __shfl_xor_sync(0xffffffffu, r.t_vm2[h], o);
+        merge_top2(r.t_vm[h], r.t_cm[h], r.t_vm2[h], ov, oc, ov2);
+      }
     }
     const int tcnt = r.t_cnt[h];
     r.counts[h] += tcnt;
@@ -463,18 +568,22 @@ __device__ __forceinline__ void close_tile(Rows& r, const Args& p, int row_lo,
   open_tile(r);
 }
 
-// The epilogue of sub-block sb, from its accumulator; `rloc` is this
-// lane's block-local row of h = 0.  kTri, future columns: the column side
-// into buffer sb % col_bufs; the last of the 8 consumer warps to finish
-// the sub-block (a counter per buffer) flushes it, so no warp waits for
-// another.  A warp cannot reach the buffer's next sub-block before that
-// flush: it would need a B stage that the producer loads only after every
-// warp has released a stage issued after its epilogue of sb, and launch
-// gives col_bufs * (d / 64) > stages.
-template <int MODE>
+// The epilogue of sub-block sb, from its accumulator; `row_lo` is this
+// lane's global row of h = 0, `rloc` the block-local one.  kTri, future
+// columns: the column side into buffer sb % col_bufs; the last of the 8
+// consumer warps to finish the sub-block (a counter per buffer) flushes
+// it, so no warp waits for another.  A warp cannot reach the buffer's next
+// sub-block before that flush: it would need a B stage that the producer
+// loads only after every warp has released a stage issued after its
+// epilogue of sb, and launch gives col_bufs * (d / 64) > stages.
+template <int MODE, int TIE>
 __device__ __forceinline__ void epilogue(Rows& r, const float (&acc)[64],
-                                         const Args& p, int sb, int rloc,
-                                         int lane, ColStage* cst) {
+                                         const Args& p, int sb, int row_lo,
+                                         int rloc, int lane, ColStage* cst) {
+  if (MODE == kCount) {
+    count_sub_block(r, acc, p.thr);
+    return;
+  }
   const int col0 = sb * BN;
   const int tcol0 = col0 % p.tile;
   const bool col_side = MODE == kTri && col0 >= p.fut_start;
@@ -483,9 +592,9 @@ __device__ __forceinline__ void epilogue(Rows& r, const float (&acc)[64],
   if (col_side)
     sub_block<true>(r, acc, p.thr, tcol0, lane & 3, cs, rloc);
   else
-    sub_block<false>(r, acc, p.thr, tcol0, lane & 3, nullptr, rloc);
+    sub_block<false, TIE>(r, acc, p.thr, tcol0, lane & 3, nullptr, rloc);
   if ((col0 + BN) % p.tile == 0)
-    close_tile(r, p, blockIdx.x * BM + rloc, p.col_off + col0 - tcol0, lane);
+    close_tile<TIE>(r, p, row_lo, p.col_off + col0 - tcol0, lane);
   if (col_side) {
     int* done = reinterpret_cast<int*>(cst + p.col_bufs) + 2 * buf;
     __syncwarp();  // the warp's atomics before lane 0's count
@@ -529,10 +638,12 @@ struct Ring {
 
 // Issue the 4 wgmmas of B stage `ring.st` (k block kb) into acc, as one
 // commit group; then wait for the previous group and release its stage.
+// A's k blocks lie ROWS x 128 bytes apart.
+template <int ROWS>
 __device__ __forceinline__ void mma_stage(float (&acc)[64], Ring& ring,
                                           uint32_t a_wg, int kb, int lane) {
   mbar_wait(ring.full(ring.st), ring.ph);
-  const uint32_t a = a_wg + kb * BOX;
+  const uint32_t a = a_wg + kb * (ROWS * BK * 2);
   const uint32_t b = ring.b0 + ring.st * BOX;
   fence_regs(acc);
   wgmma_fence();
@@ -547,34 +658,43 @@ __device__ __forceinline__ void mma_stage(float (&acc)[64], Ring& ring,
   ring.advance();
 }
 
-template <int MODE>
-__global__ void __launch_bounds__(NT, 1)
+// Threads of a block of ROWS left rows: a consumer warpgroup per 64 rows,
+// then the producer warpgroup.
+__host__ __device__ constexpr int threads(int rows) { return 2 * rows + 128; }
+
+template <int MODE, int ROWS = BM, int TIE = kFirst>
+__global__ void __launch_bounds__(threads(ROWS), 1)
     scan_kernel(const __grid_constant__ CUtensorMap tm_a,
                 const __grid_constant__ CUtensorMap tm_b, const Args p) {
+  static_assert(ROWS == BM || ROWS == 64, "a block holds 128 or 64 rows");
+  static_assert((ROWS == BM && TIE == kFirst) || MODE == kClosed,
+                "the switches are kClosed's");
+  constexpr int CWG = ROWS / 64;     // consumer warpgroups
+  constexpr int NTR = threads(ROWS);
   extern __shared__ unsigned char smem_raw[];
   // 128-byte swizzled boxes must sit on 1024-byte boundaries.
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const int nkb = p.d / BK;
   const int S = p.stages;
   const uint32_t a_s = base;
-  const uint32_t b_s = a_s + nkb * BOX;
+  const uint32_t b_s = a_s + nkb * (ROWS * BK * 2);
   const uint32_t bars = b_s + S * BOX;  // full[S], empty[S], a_full
   const uint32_t a_full = bars + 16 * S;
   // kTri: the column-statistics buffers, after the barriers' 256 bytes
   ColStage* cst =
       reinterpret_cast<ColStage*>(smem_raw + (bars + 256 - smem_u32(smem_raw)));
   const int tid = threadIdx.x;
-  const int row0 = blockIdx.x * BM;
+  const int row0 = blockIdx.x * ROWS;
   const int n_sub = p.n / BN;
 
   if (MODE == kTri) {
-    for (int i = tid; i < col_bytes(p.col_bufs) / 4; i += NT)
+    for (int i = tid; i < col_bytes(p.col_bufs) / 4; i += NTR)
       reinterpret_cast<uint32_t*>(cst)[i] = 0;
   }
   if (tid == 0) {
     for (int s = 0; s < S; ++s) {
       mbar_init(bars + 8 * s, 1);            // producer's expect_tx
-      mbar_init(bars + 8 * (S + s), 8);      // one arrival per consumer warp
+      mbar_init(bars + 8 * (S + s), 4 * CWG);  // one arrival per consumer warp
     }
     mbar_init(a_full, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -584,13 +704,13 @@ __global__ void __launch_bounds__(NT, 1)
   // The role, broadcast from lane 0 so that the compiler sees it is
   // warp-uniform (wgmma in a possibly divergent path is serialized).
   const int role = __shfl_sync(0xffffffffu, tid >> 7, 0);
-  if (role == 2) {
+  if (role == CWG) {
     // ---- producer warpgroup: one thread keeps the TMA loads in flight ----
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
-    if (tid == 256) {
-      mbar_expect_tx(a_full, nkb * BOX);
+    if (CWG == 2) asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (tid == CWG * 128) {
+      mbar_expect_tx(a_full, nkb * (ROWS * BK * 2));
       for (int kb = 0; kb < nkb; ++kb)
-        tma_load(a_s + kb * BOX, &tm_a, kb * BK, row0, a_full);
+        tma_load(a_s + kb * (ROWS * BK * 2), &tm_a, kb * BK, row0, a_full);
       int st = 0;
       uint32_t ph = 0;
       for (int sb = 0; sb < n_sub; ++sb) {
@@ -607,7 +727,7 @@ __global__ void __launch_bounds__(NT, 1)
     }
   } else {
     // ---- consumer warpgroups: rows 64 wg .. 64 wg + 63 --------------------
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    if (CWG == 2) asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
     const int wg = role;
     const int lane = tid & 31;
     const int wrow = row0 + wg * 64 + ((tid & 127) >> 5) * 16;  // warp's row 0
@@ -615,7 +735,7 @@ __global__ void __launch_bounds__(NT, 1)
     const int rloc = row_lo - row0;
     const int cand_c = p.cand_c;
 
-    if (MODE != kChain) {
+    if (MODE == kClosed || MODE == kTri) {
       for (int i = lane; i < 16 * cand_c; i += 32) {
         if (wrow + i / cand_c < p.m) {
           p.v[static_cast<int64_t>(wrow) * cand_c + i] = NEG;
@@ -650,22 +770,34 @@ __global__ void __launch_bounds__(NT, 1)
     // sub-block 0 into acc0; then per pair of sub-blocks: issue the next
     // sub-block's first stage, finish and consume the current one, issue
     // the rest (n_sub is even: n is a multiple of tile, tile of 256).
-    for (int kb = 0; kb < nkb; ++kb) mma_stage(acc0, ring, a_wg, kb, lane);
+    for (int kb = 0; kb < nkb; ++kb) mma_stage<ROWS>(acc0, ring, a_wg, kb, lane);
     for (int sb = 0;; sb += 2) {
-      mma_stage(acc1, ring, a_wg, 0, lane);  // sub-block sb is complete
+      mma_stage<ROWS>(acc1, ring, a_wg, 0, lane);  // sub-block sb is complete
       fence_regs(acc0);
-      epilogue<MODE>(r, acc0, p, sb, rloc, lane, cst);
-      for (int kb = 1; kb < nkb; ++kb) mma_stage(acc1, ring, a_wg, kb, lane);
+      epilogue<MODE, TIE>(r, acc0, p, sb, row_lo, rloc, lane, cst);
+      for (int kb = 1; kb < nkb; ++kb) mma_stage<ROWS>(acc1, ring, a_wg, kb, lane);
       if (sb + 2 == n_sub) break;
-      mma_stage(acc0, ring, a_wg, 0, lane);  // sub-block sb + 1 is complete
+      mma_stage<ROWS>(acc0, ring, a_wg, 0, lane);  // sub-block sb + 1 is complete
       fence_regs(acc1);
-      epilogue<MODE>(r, acc1, p, sb + 1, rloc, lane, cst);
-      for (int kb = 1; kb < nkb; ++kb) mma_stage(acc0, ring, a_wg, kb, lane);
+      epilogue<MODE, TIE>(r, acc1, p, sb + 1, row_lo, rloc, lane, cst);
+      for (int kb = 1; kb < nkb; ++kb) mma_stage<ROWS>(acc0, ring, a_wg, kb, lane);
     }
     wgmma_wait<0>();
     if (lane == 0) mbar_arrive(ring.empty(ring.prev));
     fence_regs(acc1);
-    epilogue<MODE>(r, acc1, p, n_sub - 1, rloc, lane, cst);
+    epilogue<MODE, TIE>(r, acc1, p, n_sub - 1, row_lo, rloc, lane, cst);
+
+    if (MODE == kCount) {  // the per-thread counts, summed across the quad
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+#pragma unroll
+        for (int o = 1; o <= 2; o <<= 1)
+          r.counts[h] += __shfl_xor_sync(0xffffffffu, r.counts[h], o);
+        const int gr = row_lo + 8 * h;
+        if ((lane & 3) == 0 && gr < p.m) p.counts[gr] = r.counts[h];
+      }
+      return;
+    }
 
     // ---- outputs: the warp's 16 rows (kTri keeps v and c as they are) ---
     for (int i = lane; MODE != kTri && i < 16 * cand_c; i += 32) {
@@ -730,15 +862,16 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// (rows, d) bf16, row-major, read in boxes of 128 rows x 64 k with the
+// (rows, d) bf16, row-major, read in boxes of box_rows rows x 64 k with the
 // 128-byte swizzle; rows past the end read as zeros.
-inline int make_map(CUtensorMap* map, const void* ptr, int64_t rows, int64_t d) {
+inline int make_map(CUtensorMap* map, const void* ptr, int64_t rows, int64_t d,
+                    int box_rows = BN) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return kEncodeError;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(d),
                               static_cast<cuuint64_t>(rows)};
   const cuuint64_t strides[1] = {static_cast<cuuint64_t>(d) * 2};
-  const cuuint32_t box[2] = {BK, BN};
+  const cuuint32_t box[2] = {BK, static_cast<cuuint32_t>(box_rows)};
   const cuuint32_t elem[2] = {1, 1};
   const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
                         const_cast<void*>(ptr), dims, strides, box, elem,
@@ -748,16 +881,16 @@ inline int make_map(CUtensorMap* map, const void* ptr, int64_t rows, int64_t d) 
   return r == CUDA_SUCCESS ? 0 : kEncodeError + static_cast<int>(r);
 }
 
-// Launch one block per 128 rows on `stream`; returns the cudaError_t (or
+// Launch one block per ROWS rows on `stream`; returns the cudaError_t (or
 // kEncodeError + CUresult when a TMA descriptor cannot be built).
-template <int MODE>
+template <int MODE, int ROWS = BM, int TIE = kFirst>
 inline int launch(Args p, void* stream) {
   CUtensorMap tm_a, tm_b;
-  int e = make_map(&tm_a, p.A, p.m, p.d);
+  int e = make_map(&tm_a, p.A, p.m, p.d, ROWS);
   if (e == 0) e = make_map(&tm_b, p.B, p.n, p.d);
   if (e != 0) return e;
   const int nkb = p.d / BK;
-  const int a_bytes = nkb * BOX;
+  const int a_bytes = nkb * ROWS * BK * 2;
   const int room = SMEM_LIMIT - 1024 - 256 - a_bytes;  // alignment, barriers
   p.stages = room / BOX < MAX_STAGES ? room / BOX : MAX_STAGES;
   p.col_bufs = 0;
@@ -771,12 +904,12 @@ inline int launch(Args p, void* stream) {
   const size_t smem = 1024 + a_bytes + static_cast<size_t>(p.stages) * BOX + 256 +
                       col_bytes(p.col_bufs);
   cudaError_t err = cudaFuncSetAttribute(
-      scan_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      scan_kernel<MODE, ROWS, TIE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const unsigned blocks = static_cast<unsigned>((p.m + BM - 1) / BM);
-  scan_kernel<MODE><<<blocks, NT, smem, static_cast<cudaStream_t>(stream)>>>(
-      tm_a, tm_b, p);
+  const unsigned blocks = static_cast<unsigned>((p.m + ROWS - 1) / ROWS);
+  scan_kernel<MODE, ROWS, TIE>
+      <<<blocks, threads(ROWS), smem, static_cast<cudaStream_t>(stream)>>>(tm_a, tm_b, p);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -278,7 +278,10 @@ class StringGrouper:
                 pairs = distributed_topn_cosine_matches(*args, cfg.mesh, **knobs)
             else:
                 pairs = topn_cosine_matches(*args, device=self._device, **knobs)
-        for k, v in (pairs.stats or {}).items():
+        stats_src = pairs.stats
+        if stats_src is None:  # no attachment: read the module mirror
+            from .ops.matcher import LAST_STATS as stats_src
+        for k, v in stats_src.items():
             self.timings.seconds[f"match.{k}"] = v
         self._store_pairs(pairs)
         return self

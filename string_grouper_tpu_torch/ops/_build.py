@@ -27,7 +27,7 @@ NVCC_FLAGS = [
     "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
 ]
 KERNELS = ("p1_fused_closed2", "p1_fused_chain", "p1_tri_fused",
-           "device_hash_codes")
+           "device_hash_codes", "p1_mm_floor", "p1_closed2_variant")
 
 _p = ctypes.c_void_p
 _i = ctypes.c_int64
@@ -47,6 +47,12 @@ _ARGTYPES = {
     # codes, packed, stride, width, inv_norm, table, idf, n, dim, base,
     # ngram, out, stream
     "device_hash_codes": [_p, _i, _i, _i, _p, _p, _p, _i, _i, _i, _i, _p, _p],
+    # A, B, thr, m, n, d, counts, stream
+    "p1_mm_floor": [_p, _p, _f, _i, _i, _i, _p, _p],
+    # A, B, thr, m, n, d, tile, cand_c, block_rows, minidx, ship, counts,
+    # tmax, bound, vbuf, stream
+    "p1_closed2_variant": [_p, _p, _f, _i, _i, _i, _i, _i, _i, _i,
+                           _p, _p, _p, _p, _p, _p],
 }
 
 _LOCK = threading.Lock()

@@ -22,12 +22,24 @@ launches per (wrapper, device), so a mesh run can show where each ran.
   The three share the TMA/wgmma scan of csrc/p1_scan_sm90.cuh.
 * ``device_hash_codes`` (csrc/device_hash_codes.cu) replaces the XLA
   program ``_device_hash_codes`` (string_grouper_tpu/ops/matcher.py:398-464).
+* ``p1_mm_floor`` (csrc/p1_mm_floor.cu) and ``p1_closed2_variant``
+  (csrc/p1_closed2_variant.cu) replace the Pallas A/B probes ``mm_floor``
+  and ``variant`` (benchmarks/ab_p1_epilogue.py:65-88, :160-200): the
+  scan's product with the qualified count only, and ``p1_fused_closed2``
+  under its tie-rule and block-rows switches.  No path of the matcher
+  launches them; ``tools/ab_p1_epilogue.py`` and chip_smoke.py time them.
+
+The plain versions multiply f32 upcasts of bf16 inputs under
+``ieee_f32_matmul()``: exact products, f32 sums, whatever the caller set
+for TF32.
 """
 
 from __future__ import annotations
 
+import contextlib
+import threading
 from collections import Counter
-from typing import Dict, Optional
+from typing import Dict, Iterator, Optional
 
 import torch
 
@@ -52,6 +64,59 @@ def _launched(name: str, dev: torch.device) -> None:
     """Count one launch of ``name``'s kernel on ``dev``."""
     LAUNCHES[name] += 1
     LAUNCHES_BY_DEVICE[(name, str(dev))] += 1
+
+
+_PREC_LOCK = threading.Lock()
+_PREC_DEPTH = 0
+_PREC_SAVED: Optional[tuple] = None
+
+
+def _get_precision() -> tuple:
+    """The caller's float32 matmul setting, in the API it was set with:
+    ``("legacy", torch.get_float32_matmul_precision())``, or, when that
+    getter refuses (the setting was made through the per-backend
+    ``fp32_precision`` API), ``("cuda", backends.cuda.matmul.fp32_precision)``."""
+    try:
+        return "legacy", torch.get_float32_matmul_precision()
+    except RuntimeError:
+        return "cuda", torch.backends.cuda.matmul.fp32_precision
+
+
+def _set_precision(saved: tuple) -> None:
+    api, value = saved
+    if api == "legacy":
+        torch.set_float32_matmul_precision(value)
+    else:
+        torch.backends.cuda.matmul.fp32_precision = value
+
+
+@contextlib.contextmanager
+def ieee_f32_matmul() -> Iterator[None]:
+    """Float32 matrix products in full IEEE float32 (no TF32, no bf16
+    passes) inside the block, the caller's setting restored after it.
+    Products of bf16 values upcast to f32 are exact in f32; TF32 would
+    round the inputs to 10 mantissa bits.  Nothing is written when the
+    setting already is full float32.  Blocks on several threads nest: the
+    first to enter saves and sets, the last to leave restores."""
+    global _PREC_DEPTH, _PREC_SAVED
+    with _PREC_LOCK:
+        if _PREC_DEPTH == 0:
+            saved = _get_precision()
+            if saved[1] in ("highest", "ieee"):
+                _PREC_SAVED = None
+            else:
+                _PREC_SAVED = saved
+                _set_precision(("legacy", "highest") if saved[0] == "legacy"
+                               else ("cuda", "ieee"))
+        _PREC_DEPTH += 1
+    try:
+        yield
+    finally:
+        with _PREC_LOCK:
+            _PREC_DEPTH -= 1
+            if _PREC_DEPTH == 0 and _PREC_SAVED is not None:
+                _set_precision(_PREC_SAVED)
+                _PREC_SAVED = None
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -106,11 +171,14 @@ def _rank_insert2(v, c, p0, p1, q0, q1):
     return new_v, new_c
 
 
-def _tile_top2(s: torch.Tensor, thr: float, dim: int):
+def _tile_top2(s: torch.Tensor, thr: float, dim: int, minidx: bool = False):
     """Closed-form top-2 of a thresholded score block along ``dim``
     (``_p1_body``'s reductions): ``(cnt, s1, vmax, cmax, vmax2)`` -- the
     qualified count, the sum of the qualified indices, the maximum and its
-    first index (``jnp.argmax``), and the maximum with that index masked."""
+    first index (``jnp.argmax``), and the maximum with that index masked.
+    ``minidx``: the first index written as ``_p1_body_minidx`` does
+    (benchmarks/ab_p1_epilogue.py:118-120), the smallest index among the
+    maxima, 0 where nothing qualifies."""
     mask = s >= thr
     ubm = torch.where(mask, s, _NEG)
     shape = [1] * s.dim()
@@ -119,7 +187,12 @@ def _tile_top2(s: torch.Tensor, thr: float, dim: int):
     cnt = mask.sum(dim, dtype=torch.int32)
     s1 = torch.where(mask, idx, 0).sum(dim, dtype=torch.int32)
     vmax = ubm.max(dim).values
-    cmax = ubm.argmax(dim).to(torch.int32)  # first maximum, as jnp.argmax
+    if minidx:
+        at_max = ubm == vmax.unsqueeze(dim)
+        cmax = torch.where(at_max, idx, s.shape[dim]).min(dim).values
+        cmax = torch.where(vmax > _NEG, cmax, 0).to(torch.int32)
+    else:
+        cmax = ubm.argmax(dim).to(torch.int32)  # first maximum, as jnp.argmax
     vmax2 = ubm.scatter(dim, cmax.unsqueeze(dim).long(), _NEG).max(dim).values
     return cnt, s1, vmax, cmax, vmax2
 
@@ -140,7 +213,8 @@ def p1_chain_init(m: int, cand_c: int, device=None):
 
 
 def p1_fused_chain_plain(a_hash, b_chunk, thr_eff: float, col_off: int,
-                         state, tile: int = 4096, cand_c: int = 64):
+                         state, tile: int = 4096, cand_c: int = 64,
+                         minidx: bool = False):
     """Plain PyTorch version of one chained phase-1 pass
     (``_p1_chain_body``, pallas_kernels.py:183-257): ``_p1_body`` over the
     column chunk ``b_chunk`` (global columns ``col_off`` ..), resuming from
@@ -148,15 +222,17 @@ def p1_fused_chain_plain(a_hash, b_chunk, thr_eff: float, col_off: int,
     state back into those tensors.  Chained passes over tile-aligned chunks
     are bitwise one pass over the concatenated columns.  Returns ``(ship,
     counts, tmax, bound, max_cnt, state)``; ship and bound cover the
-    columns seen so far."""
+    columns seen so far.  ``minidx``: the tile argmax as the smallest column
+    among the maxima (``p1_closed2_variant_plain``), the same column."""
     v0, c0, meta, tb0 = state
     a = a_hash.float()
     thr = float(thr_eff)
     v, c, tb = v0, c0, tb0
     counts, tmax, nfin = meta[:, 0], meta[:, 1], meta[:, 2]
     for j in range(b_chunk.shape[0] // tile):
-        s = a @ b_chunk[j * tile:(j + 1) * tile].float().T
-        cnt, s1, vmax, cmax, vmax2 = _tile_top2(s, thr, 1)
+        with ieee_f32_matmul():
+            s = a @ b_chunk[j * tile:(j + 1) * tile].float().T
+        cnt, s1, vmax, cmax, vmax2 = _tile_top2(s, thr, 1, minidx)
         have1, have2 = cnt >= 1, cnt == 2
         off = col_off + j * tile
         p0 = torch.where(have1, vmax, _NEG)
@@ -284,6 +360,139 @@ def p1_fused_chain(a_hash: torch.Tensor, b_chunk: torch.Tensor,
     return ship, counts, tmax, bound, tmax.max(), state
 
 
+# ------------------------------------- the epilogue's A/B: floor and variant
+def p1_mm_floor_supported(m: int, n: int, d: int) -> bool:
+    """Shapes ``p1_mm_floor`` takes: the scan's (d a multiple of 128 up to
+    512, whole pairs of 128-column sub-blocks), any number of rows."""
+    return d % 128 == 0 and 0 < d <= 512 and m > 0 and n > 0 and n % 256 == 0
+
+
+def p1_mm_floor_plain(a_hash, b_hash, thr_eff: float,
+                      tile: int = 4096) -> torch.Tensor:
+    """Plain PyTorch version of ``p1_mm_floor``: per left row, the count of
+    right columns whose f32 product of the bf16 inputs is >= ``thr_eff``
+    (``_mm_body``, benchmarks/ab_p1_epilogue.py:56-62), column tile by
+    column tile.  (m,) int32."""
+    a = a_hash.float()
+    thr = float(thr_eff)
+    counts = torch.zeros(a.shape[0], dtype=torch.int32, device=a.device)
+    for lo in range(0, b_hash.shape[0], tile):
+        with ieee_f32_matmul():
+            s = a @ b_hash[lo:lo + tile].float().T
+        counts += (s >= thr).sum(1, dtype=torch.int32)
+    return counts
+
+
+def p1_mm_floor(a_hash: torch.Tensor, b_hash: torch.Tensor,
+                thr_eff: float) -> torch.Tensor:
+    """Per left row, the count of right columns with s = A . B^T >= thr
+    (bf16 products, f32 accumulation) over all of B: the quantity of
+    ``p1_fused_closed2``'s ``counts`` with no candidate work, the floor
+    under its epilogue.  Replaces the Pallas A/B probe ``mm_floor``
+    (benchmarks/ab_p1_epilogue.py:65-88).  CUDA tensors launch
+    csrc/p1_mm_floor.cu (mode kCount of the scan: bitwise
+    ``p1_fused_closed2``'s counts on the same inputs); CPU tensors run the
+    plain version."""
+    if not a_hash.is_cuda:
+        return p1_mm_floor_plain(a_hash, b_hash, thr_eff)
+    m, d = a_hash.shape
+    n = b_hash.shape[0]
+    _check_tensors("p1_mm_floor", a_hash, b_hash)
+    if a_hash.dtype != torch.bfloat16 or b_hash.dtype != torch.bfloat16:
+        raise TypeError("p1_mm_floor: a_hash and b_hash must be bfloat16")
+    if b_hash.shape[1] != d:
+        raise ValueError("p1_mm_floor: hash widths differ")
+    if not p1_mm_floor_supported(m, n, d):
+        raise ValueError(f"p1_mm_floor: unsupported shape m={m} n={n} d={d}")
+    lib = _build.load("p1_mm_floor")
+    dev = a_hash.device
+    counts = torch.empty(m, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.p1_mm_floor(a_hash.data_ptr(), b_hash.data_ptr(),
+                              float(thr_eff), m, n, d, counts.data_ptr(),
+                              _stream(a_hash))
+    _build.check("p1_mm_floor", err)
+    _launched("p1_mm_floor", dev)
+    return counts
+
+
+#: p1_closed2_variant's switches: the left rows of a block, the tie rule
+VARIANT_BLOCK_ROWS = (128, 64)
+VARIANT_ARGMAX = ("first", "minidx")
+
+
+def _variant_switches(block_rows: int, argmax: str) -> None:
+    if block_rows not in VARIANT_BLOCK_ROWS or argmax not in VARIANT_ARGMAX:
+        raise ValueError(
+            f"p1_closed2_variant: block_rows must be one of {VARIANT_BLOCK_ROWS} and "
+            f"argmax one of {VARIANT_ARGMAX}, not {block_rows!r}, {argmax!r}"
+        )
+
+
+def p1_closed2_variant_plain(a_hash, b_hash, thr_eff: float, tile: int = 4096,
+                             cand_c: int = 64, block_rows: int = 128,
+                             argmax: str = "first"):
+    """Plain PyTorch version of ``p1_closed2_variant``: ``_p1_body`` per
+    logical tile, with the tile argmax written as ``argmax`` says --
+    ``"first"``: the first maximum (``jnp.argmax``); ``"minidx"``:
+    literally the smallest column among the maxima, 0 where the tile has
+    no qualified score (``_p1_body_minidx``, benchmarks/ab_p1_epilogue.py:
+    92-157).  Rows are independent, so ``block_rows`` (the kernel's
+    schedule) does not change the result; it is checked, not used.
+    Returns ``(ship, counts, tmax, bound, max_cnt)``."""
+    _variant_switches(block_rows, argmax)
+    state = p1_chain_init(a_hash.shape[0], cand_c, a_hash.device)
+    return p1_fused_chain_plain(a_hash, b_hash, thr_eff, 0, state, tile,
+                                cand_c, minidx=argmax == "minidx")[:5]
+
+
+def p1_closed2_variant(a_hash: torch.Tensor, b_hash: torch.Tensor,
+                       thr_eff: float, tile: int = 4096, cand_c: int = 64,
+                       block_rows: int = 128, argmax: str = "first"):
+    """``p1_fused_closed2`` under two switches: ``argmax`` ("first": the
+    shipped rule; "minidx": the smallest column among the maxima) and
+    ``block_rows`` (128: the shipped block; 64: one consumer warpgroup, so
+    every block streams all of B for half the rows).  Replaces the Pallas
+    A/B probe ``variant`` (benchmarks/ab_p1_epilogue.py:160-200; its
+    ``bm`` sweep :207-214).  Returns ``(ship, counts, tmax, bound,
+    max_cnt)``, bitwise ``p1_fused_closed2``'s under every switch.  CUDA
+    tensors launch csrc/p1_closed2_variant.cu; CPU tensors run the plain
+    version."""
+    _variant_switches(block_rows, argmax)
+    if not a_hash.is_cuda:
+        return p1_closed2_variant_plain(a_hash, b_hash, thr_eff, tile, cand_c,
+                                        block_rows, argmax)
+    m, d = a_hash.shape
+    n = b_hash.shape[0]
+    _check_tensors("p1_closed2_variant", a_hash, b_hash)
+    if a_hash.dtype != torch.bfloat16 or b_hash.dtype != torch.bfloat16:
+        raise TypeError("p1_closed2_variant: a_hash and b_hash must be bfloat16")
+    if b_hash.shape[1] != d:
+        raise ValueError("p1_closed2_variant: hash widths differ")
+    if not p1_fused_supported(m, n, d, tile, cand_c):
+        raise ValueError(
+            f"p1_closed2_variant: unsupported shape m={m} n={n} d={d} "
+            f"tile={tile} cand_c={cand_c}"
+        )
+    lib = _build.load("p1_closed2_variant")
+    dev = a_hash.device
+    ship = torch.empty((m, cand_c), dtype=torch.int32, device=dev)
+    counts = torch.empty(m, dtype=torch.int32, device=dev)
+    tmax = torch.empty(m, dtype=torch.int32, device=dev)
+    bound = torch.empty(m, dtype=torch.float32, device=dev)
+    vbuf = torch.empty((m, cand_c), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.p1_closed2_variant(
+            a_hash.data_ptr(), b_hash.data_ptr(), float(thr_eff), m, n, d,
+            tile, cand_c, block_rows, int(argmax == "minidx"),
+            ship.data_ptr(), counts.data_ptr(), tmax.data_ptr(),
+            bound.data_ptr(), vbuf.data_ptr(), _stream(a_hash),
+        )
+    _build.check("p1_closed2_variant", err)
+    _launched("p1_closed2_variant", dev)
+    return ship, counts, tmax, bound, tmax.max()
+
+
 # ------------------------------------------------ kernel 3: triangular p1
 #: Packed future state: per right row, TRI_FUT_C candidate values, their
 #: column ids (int32 bit patterns in f32 slots) and 8 metadata slots
@@ -360,7 +569,8 @@ def p1_tri_fused_plain(a_seg, b_hash, fpack, j0: int, thr_eff: float,
         v, c = rv[rows], rc[rows]
         m_cnt, m_tmax, m_bnd, m_nfin = rmeta[rows, :4].unbind(1)
         for j in range(j0, nt):
-            s = a[rows] @ b_hash[j * tile:(j + 1) * tile].float().T
+            with ieee_f32_matmul():
+                s = a[rows] @ b_hash[j * tile:(j + 1) * tile].float().T
             # row side
             cnt, s1, vmax, cmax, vmax2 = _tile_top2(s, thr, 1)
             have1, have2 = cnt >= 1, cnt == 2

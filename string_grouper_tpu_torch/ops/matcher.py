@@ -55,6 +55,7 @@ from ..validation import resolve_device
 from .kernels import (
     _KNUTH,
     device_hash_codes,
+    ieee_f32_matmul,
     p1_chain_init,
     p1_fused_chain,
     p1_fused_closed2,
@@ -63,6 +64,16 @@ from .kernels import (
 from .rescore import rescore_pairs_fp64
 
 logger = logging.getLogger("string_grouper_tpu_torch")
+
+#: the stats of the most recent matcher fit in this process -- a mirror of
+#: ``MatchPairs.stats`` (rebound per fit; under concurrent fits read
+#: ``pairs.stats``), which the engine reads when a result carries none.
+LAST_STATS: dict = {}
+
+
+def _publish_stats(stats: dict) -> None:
+    global LAST_STATS
+    LAST_STATS = stats
 
 # Relative slack applied to the phase-1 upper-bound threshold to absorb
 # reduced-precision arithmetic (bf16 matmul inputs): bf16 rounding can shrink
@@ -740,8 +751,6 @@ def _ub_topk_scan(
     columns, the per-row count of qualified columns, the per-row maximum
     per-tile count, and an upper bound on every DROPPED candidate (-inf
     when the row dropped nothing)."""
-    # bf16 values upcast exactly; TF32 would round them to 10 mantissa bits.
-    torch.backends.cuda.matmul.allow_tf32 = False
     m = a_hash.shape[0]
     n_tiles, tile = b_hash_tiles.shape[0], b_hash_tiles.shape[1]
     dev = a_hash.device
@@ -755,7 +764,10 @@ def _ub_topk_scan(
     tvs, tcs = [], []
     for t in range(n_tiles):
         off = t * tile
-        ub = a @ b_hash_tiles[t].float().T
+        # bf16 values upcast exactly; TF32 would round them to 10 mantissa
+        # bits.  The caller's TF32 setting is restored after the product.
+        with ieee_f32_matmul():
+            ub = a @ b_hash_tiles[t].float().T
         qual = ub >= thr
         ubm = torch.where(qual, ub, _NEG)
         cnt = qual.sum(1, dtype=torch.int32)
@@ -2277,6 +2289,7 @@ def match_with_collapse(
         stats["collapse"] = collapse_s
         stats["p1_setup"] = setup_s
         pairs.stats = stats
+        _publish_stats(stats)
         return pairs
     t0 = _time.perf_counter()
     run, run_rows, c_cap, tile = phase1_factory(first_l, first_r)
@@ -2306,6 +2319,7 @@ def match_with_collapse(
     )
     stats["expand"] = _time.perf_counter() - t0
     pairs.stats = stats
+    _publish_stats(stats)
     return pairs
 
 

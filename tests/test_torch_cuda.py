@@ -23,6 +23,11 @@ must give the CPU's frames with the kernels launched; under ``multihost``
 a virtual mesh's device slots) the card's default frame.  Under
 ``SG_TPU_FUSED=0`` the card launches no ``p1_fused_closed2`` and gives the
 same frame; the torch op ``hashed_projection`` gives the CPU's bits.
+The epilogue A/B kernels ``p1_mm_floor`` and ``p1_closed2_variant`` (every
+switch) must equal ``p1_fused_closed2`` bitwise and their plain versions
+on dyadic inputs; the default match path launches neither.  A traced
+match (``utils.profiling.trace``) holds the fused kernel's events, and a
+match leaves the caller's TF32 setting as it was.
 """
 
 import numpy as np
@@ -197,6 +202,77 @@ def test_tri_kernel_ties_take_first_row(dev):
     assert int((meta[:, 1] == 2).sum()) > 0 and int((meta[:, 1] > 2).sum()) > 0
 
 
+@pytest.mark.parametrize("m,n,d,tile,cand_c,thr", [
+    (256, 1024, 128, 256, 8, 0.6),
+    (300, 8192, 512, 4096, 64, 0.5),    # ragged: a 64-row block and a half one
+    (512, 2048, 256, 512, 256, 0.3),    # widest top-C
+    (384, 4096, 512, 256, 256, 0.3),    # d 512, tile 256
+])
+def test_epilogue_ab_kernels_equal_closed2_and_plain(dev, m, n, d, tile, cand_c, thr):
+    b = torch.from_numpy(_dyadic(n, d, seed=m)).to(torch.bfloat16).to(dev)
+    a = b[:m].contiguous()
+    ref = K.p1_fused_closed2(a, b, thr, tile=tile, cand_c=cand_c)
+    before = dict(K.LAUNCHES)
+    floor = K.p1_mm_floor(a, b, thr)
+    assert K.LAUNCHES["p1_mm_floor"] == before["p1_mm_floor"] + 1
+    assert torch.equal(floor, ref[1])
+    assert torch.equal(floor.cpu(), K.p1_mm_floor_plain(a, b, thr).cpu())
+    for block_rows in K.VARIANT_BLOCK_ROWS:
+        for argmax in K.VARIANT_ARGMAX:
+            got = K.p1_closed2_variant(a, b, thr, tile, cand_c, block_rows, argmax)
+            want = K.p1_closed2_variant_plain(a, b, thr, tile, cand_c,
+                                              block_rows, argmax)
+            for name, g, r, w in zip(("ship", "counts", "tmax", "bound", "max_cnt"),
+                                     got, ref, want):
+                assert torch.equal(g, r), (block_rows, argmax, name)
+                assert torch.equal(g.cpu(), w.cpu()), (block_rows, argmax, name)
+    assert K.LAUNCHES["p1_closed2_variant"] == before["p1_closed2_variant"] + 4
+    assert int(floor.sum()) > 0
+
+
+def test_variant_ties_take_first_column(dev):
+    """test_p1_kernel_ties_take_first_column's duplicates under both tie
+    rules and both block sizes."""
+    rng = np.random.default_rng(4)
+    distinct = _dyadic(512, 256, seed=9)
+    b = torch.from_numpy(distinct[rng.integers(0, 512, size=4096)]).to(torch.bfloat16).to(dev)
+    a = torch.from_numpy(distinct[:256]).to(torch.bfloat16).to(dev)
+    ref = K.p1_fused_closed2(a, b, 0.95, tile=256, cand_c=16)
+    for block_rows in K.VARIANT_BLOCK_ROWS:
+        for argmax in K.VARIANT_ARGMAX:
+            got = K.p1_closed2_variant(a, b, 0.95, 256, 16, block_rows, argmax)
+            for g, r in zip(got, ref):
+                assert torch.equal(g, r), (block_rows, argmax)
+    assert int((ref[2] == 2).sum()) > 0 and int((ref[2] > 2).sum()) > 0
+
+
+def test_default_match_launches_no_ab_kernel_and_keeps_tf32(dev):
+    s = pd.Series(synthetic_company_names(3000, seed=33))
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        K.reset_launches()
+        sgt.match_strings(s)
+        assert torch.backends.cuda.matmul.allow_tf32
+        assert torch.get_float32_matmul_precision() == "high"
+    finally:
+        torch.set_float32_matmul_precision("highest")
+    assert K.LAUNCHES["p1_fused_closed2"] > 0, K.LAUNCHES
+    assert K.LAUNCHES["p1_mm_floor"] == K.LAUNCHES["p1_closed2_variant"] == 0
+
+
+def test_trace_holds_the_fused_kernel(dev, tmp_path):
+    from string_grouper_tpu_torch.utils import profiling as P
+
+    s = pd.Series(synthetic_company_names(3000, seed=35))
+    want = sgt.match_strings(s)
+    with P.trace(log_dir=str(tmp_path)):
+        got = sgt.match_strings(s)
+    pd.testing.assert_frame_equal(got, want, check_exact=True)
+    events = P.read_trace(P.trace_files(str(tmp_path))[-1])
+    assert any("scan_kernel" in k for k in P.kernel_durations(events))
+    assert P.union_us(P.device_intervals(events)) > 0
+
+
 def test_new_kernels_raise_on_unsupported_cuda_shapes(dev):
     b = torch.zeros((1024, 128), dtype=torch.bfloat16, device=dev)
     with pytest.raises(ValueError):
@@ -206,6 +282,12 @@ def test_new_kernels_raise_on_unsupported_cuda_shapes(dev):
     with pytest.raises(TypeError):
         K.p1_tri_fused(b[:256].float(), b, K.tri_future_init(1024, dev), 0,
                        0.5, 256, 8, 128)
+    with pytest.raises(ValueError):  # half a pair of sub-blocks
+        K.p1_mm_floor(b[:256], b[:384], 0.5)
+    with pytest.raises(ValueError):
+        K.p1_closed2_variant(b[:256], b, 0.5, 256, 8, block_rows=32)
+    with pytest.raises(TypeError):
+        K.p1_mm_floor(b[:256].float(), b, 0.5)
 
 
 # 2: one hash bit; 4096: > 48 KB of histograms; 32768: one warp per block
