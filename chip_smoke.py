@@ -12,8 +12,8 @@ Phases (any failure raises and the script exits non-zero without a result):
    source, all started together) and print the build time, and beside it
    ``nvcc -Xptxas -v``'s registers, shared memory and spills for the five
    kernels on the TMA/wgmma scan (no stack, no spills and no serialized
-   wgmma, and ``p1_fused_closed2`` at its 168 registers, or the phase
-   fails).
+   wgmma, and both instantiations of ``p1_fused_closed2``, A resident and
+   A streamed, at 168 registers, or the phase fails).
 2. Kernel ``p1_fused_closed2`` against its plain PyTorch version on the
    card, on hash rows of the synthetic 663,000-name corpus (A 32,768 rows,
    B 131,072 rows, d 512, tile 4096, C 64, the default threshold): counts,
@@ -56,6 +56,21 @@ Phases (any failure raises and the script exits non-zero without a result):
    last with no future columns): d = 128, 384 (the hash's first d columns,
    renormalised) and 512, block_m 128 and 4096, C = 8 and 256; row sides
    after every segment and the future state at the end, by phase 2's rule.
+2w. The scan kernels past d = 512, where A streams through the ring
+   beside B.  First ``device_hash_codes`` at dim 1024 on the 663k payload,
+   by phase 2's hash rule (bitwise repeatable, within 1 bf16 ulp of its
+   plain version on the card and on the CPU); on that hash, both scan
+   kernels at d = 640, 768 (the first d columns, renormalised) and 1024,
+   m = 256 and 300, C = 8 and 256, by phase 2's rule, the chained passes bitwise one closed pass; the same at d = 4096
+   and 32768 (A 256 x B 4096, seeded rows around 32 centres); and
+   ``p1_tri_fused`` at d = 1024 by phase 3e's rule.
+2x. At phase 2's shape: the streamed instantiation at d = 512 bitwise the
+   resident one; ``p1_fused_closed2`` at d = 1024 against its plain
+   version (phase 2's rule); then, by CUDA events in turns, the resident
+   and streamed scans at d = 512 and the scan at d = 1024 beside its
+   operations bound (8.894 ms), ``torch.mm`` bf16 and the plain version;
+   ``p1_fused_chain`` (one pass) and ``p1_tri_fused`` (segment 0) at
+   d = 1024 the same way.
 3f. The packed-slot torch op ``_device_hash`` (not a hand kernel) on the
    663k corpus's ``pack_hash_inputs`` at its full ELL width: on the card
    bitwise equal to the same op on the CPU over the first 20,000 rows (the
@@ -95,6 +110,15 @@ Phases (any failure raises and the script exits non-zero without a result):
    ``torch.backends.cuda.matmul.allow_tf32`` set to True, and after it the
    flag and ``torch.get_float32_matmul_precision()`` must still read what
    was set (the matcher restores the caller's setting).
+5w. The main path at ``hash_dim=1024``: the 663,000-name self-join
+   (4,558,752 rows, phase 5's default frame; wall, timings, escalated rows
+   per kt, pairs rescored and launches printed; ``p1_fused_closed2``
+   launched, and no kt = 2 pass on the matcher's torch-op body), the same
+   under SG_TPU_CHUNKED_P1=1 (``p1_fused_chain`` launched); at 20,000
+   names card == CPU == phase 4's frame, SG_TPU_FUSED=0 the same frame with
+   no kernel launch (its wall beside the kernel's), a (2, 2) virtual mesh
+   the same frame with one launch per shard; and phase 4's fp64 oracle at
+   5,000 names.
 6. The mesh tier (``mesh=``: the host encode, then phase 1 per
    (segment, shard) on each shard's device).  At 20,000 names
    ``match_strings`` under ``make_mesh()`` (every visible GPU) and under
@@ -127,8 +151,9 @@ Phases (any failure raises and the script exits non-zero without a result):
    scan (``_local_block``, CUDA events) and exchange (``_exchange_rows``,
    host clock) are timed beside their bounds.  Then the sharded tier with
    2 device slots per rank (``mesh=`` a (1, 2) virtual mesh over the card,
-   so 4 devices in all): the 20,000-name self-join (phase 4's frame) and
-   the 663,000-name self-join (4,558,752 rows, phase 5's default frame;
+   so 4 devices in all): the 20,000-name self-join (phase 4's frame), the
+   same at ``hash_dim=1024`` (phase 4's frame; every slot scan at d =
+   1024, the streamed kernel), and the 663,000-name self-join (4,558,752 rows, phase 5's default frame;
    stages, escalated rows, ladder rows and walls, memory keys and launches
    printed; each slot's first-pass launch timed by CUDA events beside its
    operations bound), each with ``p1_fused_closed2`` launched once per
@@ -148,6 +173,7 @@ import socket
 import subprocess
 import sys
 import time
+from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
 from datetime import timedelta
 from pathlib import Path
@@ -166,7 +192,8 @@ N_ORACLE = 5_000
 # Duplicates matched against the full corpus by match_most_similar.
 N_NEAREST = 100_000
 # Score tolerance between the kernel and its plain version: f32 sums of 512
-# bf16 products in different orders differ by far less than this.
+# (up to 32,768) bf16 products of unit rows in different orders differ by
+# far less than this.
 TOL = 1e-5
 # Kernels each path launches: the default self-join (and its kt=2
 # escalation), and the column-chunked one (its escalation may add
@@ -180,7 +207,8 @@ CUSTOM_REGEX = r"[,-./#&]|\s"
 # The five kernels on the TMA/wgmma scan (csrc/p1_scan_sm90.cuh).
 SCAN_KERNELS = ("p1_fused_closed2", "p1_fused_chain", "p1_tri_fused",
                 "p1_mm_floor", "p1_closed2_variant")
-# p1_fused_closed2's registers a thread (ptxas; 65,536 / 384 threads).
+# p1_fused_closed2's registers a thread, in both of its instantiations
+# (ptxas; 65,536 / 384 threads).
 CLOSED2_REGISTERS = 168
 # The epilogue's A/B kernels: no path of the matcher launches them.
 AB_KERNELS = ("p1_mm_floor", "p1_closed2_variant")
@@ -392,7 +420,10 @@ def check_epilogue_ab(K, h, thr, m=32_768, n=131_072):
 
 
 # ------------------------------------------------------------------ phase 3
-def check_hash(K, M, src, dev):
+def hash_inputs(M, src, dev):
+    """``device_hash_codes``' inputs for every row of a payload: the
+    6-bit-packed code rows, inv_norm, the table and idf on the card, and
+    the row width."""
     n = len(src.inv_norm)
     lens = src.row_lengths()
     width = max(src.ngram, -(-int(lens.max()) // 40) * 40)
@@ -402,26 +433,48 @@ def check_hash(K, M, src, dev):
     inv = M._to_device(src.inv_norm, dev)
     table = M._to_device(src.table_id, dev)
     idf = M._to_device(src.idf32, dev)
-    args = (codes, inv, table, idf, 512, src.base, src.ngram)
+    return codes, inv, table, idf, width
+
+
+def hash_vs_plain(K, src, inputs, dim):
+    """``device_hash_codes`` at ``dim`` on every row of the payload: bitwise
+    repeatable, within 1 bf16 ulp of its plain version on the card and, on
+    the first ``N_HASH_CPU`` rows, of the plain version on the CPU.
+    Returns the kernel's hash and the max |diff| against the card's plain."""
+    codes, inv, table, idf, width = inputs
+    n = len(src.inv_norm)
+    args = (codes, inv, table, idf, dim, src.base, src.ngram)
     h_k = K.device_hash_codes(*args, width=width)
     h_k2 = K.device_hash_codes(*args, width=width)
     h_p = K.device_hash_codes_plain(*args, width=width)
     torch.cuda.synchronize()
-    assert torch.equal(h_k, h_k2), "device_hash_codes is not deterministic"
+    assert torch.equal(h_k, h_k2), f"device_hash_codes is not deterministic (dim={dim})"
+    del h_k2
     ulp = (h_k.view(torch.int16).int() - h_p.view(torch.int16).int()).abs()
     n_diff = int((ulp > 0).sum())
-    assert int(ulp.max()) <= 1, f"device_hash_codes: {int(ulp.max())} bf16 ulp"
+    assert int(ulp.max()) <= 1, f"device_hash_codes dim={dim}: {int(ulp.max())} bf16 ulp"
     max_err = float((h_k.float() - h_p.float()).abs().max())
-    log(f"device_hash_codes vs plain: n={n} width={width} dim=512: max 1 bf16 "
-        f"ulp; {n_diff} of {h_k.numel()} elements differ (max |diff| {max_err})")
+    del ulp, h_p
+    log(f"device_hash_codes vs plain: n={n} width={width} dim={dim}: max 1 bf16 "
+        f"ulp, bitwise repeatable; {n_diff} of {h_k.numel()} elements differ "
+        f"(max |diff| {max_err})")
     r = min(N_HASH_CPU, n)
     h_c = K.device_hash_codes_plain(codes[:r].cpu(), inv[:r].cpu(), table.cpu(),
-                                    idf.cpu(), 512, src.base, src.ngram, width=width)
+                                    idf.cpu(), dim, src.base, src.ngram, width=width)
     ulp = (h_k[:r].cpu().view(torch.int16).int() - h_c.view(torch.int16).int()).abs()
-    assert int(ulp.max()) <= 1, f"device_hash_codes vs CPU: {int(ulp.max())} bf16 ulp"
-    log(f"device_hash_codes vs plain on the CPU: first {r} rows: "
+    assert int(ulp.max()) <= 1, (
+        f"device_hash_codes vs CPU dim={dim}: {int(ulp.max())} bf16 ulp")
+    log(f"device_hash_codes vs plain on the CPU: dim={dim}, first {r} rows: "
         f"{int((ulp > 0).sum())} of {h_c.numel()} elements differ (1 bf16 ulp "
         f"allowed; both sum each bucket in window order)")
+    return h_k, max_err
+
+
+def check_hash(K, M, src, dev, inputs):
+    n = len(src.inv_norm)
+    codes, inv, table, idf, width = inputs
+    args = (codes, inv, table, idf, 512, src.base, src.ngram)
+    h_k, max_err = hash_vs_plain(K, src, inputs, 512)
 
     # library yardstick: the scatter core alone, one index_add_ over the
     # precomputed (row * dim + bucket, idf) window pairs of the whole corpus
@@ -452,15 +505,16 @@ def check_hash(K, M, src, dev):
 
 
 # ----------------------------------------------------------------- phase 2b
-def check_p1_domain(K, h, thr, n=16_384, chunk=8_192, tile=4_096):
+def check_p1_domain(K, h, thr, n=16_384, chunk=8_192, tile=4_096,
+                    dims=(128, 256, 384, 512)):
     """Both TMA/wgmma scan kernels against their plain versions over the
     rest of the domain ``p1_fused_supported`` admits: m = 256 and m = 300
-    (a ragged row block; the kt=2 escalation's small-m case), d = 128, 256,
-    384 (the hash's first d columns, renormalised) and 512, C = 8 and 256.
+    (a ragged row block; the kt=2 escalation's small-m case), d in
+    ``dims`` (the hash's first d columns, renormalised), C = 8 and 256.
     ``p1_fused_chain`` runs as two chained passes, each held against its
     plain version, and the chained passes BITWISE one closed pass."""
     n_cases, n_border, max_err = 0, 0, 0.0
-    for d in (128, 256, 384, 512):
+    for d in dims:
         hd = h[:n, :d].float()
         hd = (hd / hd.norm(dim=1, keepdim=True).clamp_min(1e-12)).to(torch.bfloat16)
         for m in (256, 300):
@@ -488,7 +542,7 @@ def check_p1_domain(K, h, thr, n=16_384, chunk=8_192, tile=4_096):
                 assert int(got[1].sum()) > 0, f"{what}: nothing qualified"
                 n_cases += 1
     log(f"scan kernels vs plain over the domain: {n_cases} cases (m 256/300, "
-        f"d 128/256/384/512, C 8/256; n={n}, tile={tile}, chain in 2 chunks): "
+        f"d {'/'.join(map(str, dims))}, C 8/256; n={n}, tile={tile}, chain in 2 chunks): "
         f"equal but {n_border} borderline rows, max |bound diff| {max_err}; "
         f"chained == one pass (bitwise) in every case")
     return max_err
@@ -639,14 +693,14 @@ def check_tri(K, h, thr, n=131_072, seg_rows=32_768):
 
 
 # ----------------------------------------------------------------- phase 3e
-def check_tri_domain(K, h, thr, n=16_384, tile=4_096):
+def check_tri_domain(K, h, thr, n=16_384, tile=4_096, dims=(128, 384, 512)):
     """``p1_tri_fused`` against its plain version over the rest of the
-    domain ``p1_tri_supported`` admits: d = 128, 384 (the hash's first d
-    columns, renormalised) and 512, block_m 128 and = tile, C = 8 and 256;
-    every segment of one tile in order (the last has no future columns),
-    row sides after each segment and the future state at the end."""
+    domain ``p1_tri_supported`` admits: d in ``dims`` (the hash's first d
+    columns, renormalised), block_m 128 and = tile, C = 8 and 256; every
+    segment of one tile in order (the last has no future columns), row
+    sides after each segment and the future state at the end."""
     n_cases, n_border, max_err = 0, 0, 0.0
-    for d in (128, 384, 512):
+    for d in dims:
         hd = h[:n, :d].float()
         hd = (hd / hd.norm(dim=1, keepdim=True).clamp_min(1e-12)).to(torch.bfloat16)
         for bm in (128, tile):
@@ -669,10 +723,158 @@ def check_tri_domain(K, h, thr, n=16_384, tile=4_096):
                 assert float(K.tri_future_unpack(f_k)[2][:, 0].sum()) > 0, \
                     f"{what}: nothing qualified"
                 n_cases += 1
-    log(f"p1_tri_fused vs plain over the domain: {n_cases} cases (d 128/384/512, "
+    log(f"p1_tri_fused vs plain over the domain: {n_cases} cases (d {'/'.join(map(str, dims))}, "
         f"block_m 128/{tile}, C 8/256; n={n}, {n // tile} segments each): equal "
         f"but {n_border} borderline rows, max |diff| {max_err}")
     return max_err
+
+
+# ----------------------------------------------------------------- phase 2w
+def check_p1_synthetic(K, thr, dev, m=256, n=4_096, tile=1_024, cand_c=64):
+    """Both scan kernels at d = 4096 and 32768 (the widest ``hash_dim``),
+    A 256 x B 4096, against their plain versions: bitwise, since the rows
+    are dyadic (24 non-zeros, multiples of 2^-9 below 1/2: exact in bf16,
+    and every f32 sum of their products exact in any order).  Rows lie
+    around 32 centres drawn from a seeded generator on the card (each
+    centre's own support), so every row qualifies on ~128 columns with
+    ties; the chained passes bitwise one closed pass."""
+    gen = torch.Generator(device=dev).manual_seed(12)
+    nnz, step = 24, 2.0 ** -9
+    for d in (4_096, 32_768):
+        support = torch.randint(0, d, (32, nnz), generator=gen, device=dev)
+        centres = 0.5 + torch.rand((32, nnz), generator=gen, device=dev)
+        pick = torch.randint(0, 32, (n,), generator=gen, device=dev)
+        vals = centres[pick] + 0.3 * torch.rand((n, nnz), generator=gen, device=dev)
+        x = torch.zeros((n, d), device=dev).scatter_(1, support[pick], vals)
+        x = torch.round(x / x.norm(dim=1, keepdim=True) / step) * step
+        assert float(x.abs().max()) < 0.5
+        b = x.to(torch.bfloat16)
+        del x, vals
+        a = b[:m].contiguous()
+        got = K.p1_fused_closed2(a, b, thr, tile, cand_c)
+        want = K.p1_fused_closed2_plain(a, b, thr, tile, cand_c)
+        outs = [("p1_fused_closed2", got, want)]
+        st_k = K.p1_chain_init(m, cand_c, dev)
+        st_p = K.p1_chain_init(m, cand_c, dev)
+        for lo in (0, n // 2):
+            bc = b[lo:lo + n // 2]
+            ck = K.p1_fused_chain(a, bc, thr, lo, st_k, tile, cand_c)
+            cp = K.p1_fused_chain_plain(a, bc, thr, lo, st_p, tile, cand_c)
+            outs.append((f"p1_fused_chain col {lo}", ck[:5], cp[:5]))
+        outs.append(("chained vs one pass", ck[:5], got))
+        torch.cuda.synchronize()
+        for what, g5, w5 in outs:
+            for name, g, w in zip(("ship", "counts", "tmax", "bound", "max_cnt"), g5, w5):
+                assert torch.equal(g, w), f"d={d} {what}: {name} differs"
+        assert int(got[1].min()) > 0 and int(got[2].max()) > 2, f"d={d}: too few qualify"
+        log(f"scan kernels vs plain at d={d} (A {m} x B {n}, tile {tile}, C {cand_c}, "
+            f"dyadic rows: {int(got[1].sum())} qualified): bitwise equal, "
+            f"chained == one pass (bitwise)")
+        del a, b, got, want, outs
+    return 0.0
+
+
+def check_wide(K, h1024, thr, dev):
+    """Phase 2w: the scan kernels at widths past 512, where A streams
+    through the ring: on the 663k corpus's hash at dim 1024 (its first d
+    columns, renormalised) at d = 640, 768 and 1024 (both scan kernels,
+    m 256/300, C 8/256, chained == one pass), ``p1_tri_fused`` at d = 1024
+    (n = 16,384, phase 3e's rule), and the synthetic d = 4096 and 32768
+    cases.  Returns the max |diff| of each kernel's checks."""
+    err_scan = check_p1_domain(K, h1024, thr, dims=(640, 768, 1024))
+    err_scan = max(err_scan, check_p1_synthetic(K, thr, dev))
+    err_tri = check_tri_domain(K, h1024, thr, dims=(1024,))
+    return err_scan, err_tri
+
+
+# ----------------------------------------------------------------- phase 2x
+def time_wide(K, h512, h1024, thr, m=32_768, n=131_072, seg_rows=32_768):
+    """Phase 2x: at phase 2's shape (A 32,768 x B 131,072, tile 4096, C 64),
+    the streamed instantiation at d = 512 bitwise the resident one; the
+    kernel at d = 1024 against its plain version (phase 2's rule); then,
+    with CUDA events, the resident and streamed scans at d = 512 and the
+    scan at d = 1024 in turns (r512, s512, w1024, w1024, s512, r512),
+    beside the operations bound, ``torch.mm`` bf16 on the same operands
+    and the plain version; and ``p1_fused_chain`` (one pass) and
+    ``p1_tri_fused`` (segment 0: A 32,768 x all 131,072 columns) at
+    d = 1024 the same way.  Returns the three kernels' d = 1024 rows."""
+    from string_grouper_tpu_torch.ops import _build
+
+    tile, cand_c = 4096, 64
+    a5, b5 = h512[:m].contiguous(), h512[:n].contiguous()
+    a1, b1 = h1024[:m].contiguous(), h1024[:n].contiguous()
+
+    def closed(a, b, stream=False):
+        with _build.force_stream_a(stream):
+            return K.p1_fused_closed2(a, b, thr, tile, cand_c)
+
+    res, strm = closed(a5, b5), closed(a5, b5, True)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("ship", "counts", "tmax", "bound", "max_cnt"), strm, res):
+        assert torch.equal(g, w), f"streamed A at d=512 != resident: {name}"
+    log(f"p1_fused_closed2 with A streamed at d=512 (A {m} x B {n}): bitwise the "
+        f"resident scan (ship, counts, tmax, bound, max_cnt)")
+    del res, strm
+    got = closed(a1, b1)
+    want = K.p1_fused_closed2_plain(a1, b1, thr, tile, cand_c)
+    err, nb = compare_scan("p1_fused_closed2 d=1024", got[:4], want[:4], a1, b1, thr)
+    log(f"p1_fused_closed2 vs plain: m={m} n={n} d=1024 tile={tile} C={cand_c}: "
+        f"{m - nb} rows equal, {nb} borderline rows, max |bound diff| {err}; "
+        f"{int(got[1].sum())} qualified")
+    del got, want
+    torch.cuda.empty_cache()
+
+    runs = (("r512", a5, b5, False), ("s512", a5, b5, True), ("w1024", a1, b1, False))
+    times = {k: [] for k, *_ in runs}
+    for k, a, b, st in (runs[0], runs[1], runs[2], runs[2], runs[1], runs[0]):
+        times[k].append(cuda_ms(lambda: closed(a, b, st), 5))
+    ms = {k: sum(v) / len(v) for k, v in times.items()}
+    lib_ms = cuda_ms(lambda: torch.mm(a1, b1.t()), 3)
+    plain_ms = cuda_ms(lambda: K.p1_fused_closed2_plain(a1, b1, thr, tile, cand_c), 1,
+                       warmup=False)
+    flops = 2.0 * m * n * 1024
+    nbytes = (m + n) * 1024 * 2 + m * cand_c * 4 + m * 12
+    bound_ms = max(flops / PEAK_BF16, nbytes / PEAK_BYTES) * 1e3
+    log(f"p1_fused_closed2 at d=1024 (CUDA events, A {m} x B {n}, turns "
+        f"r512 s512 w1024 w1024 s512 r512): {json.dumps(times)} ms; mean w1024 "
+        f"{ms['w1024']} ms = {bound_ms / ms['w1024']} of its bound {bound_ms} ms "
+        f"(operations), torch.mm bf16 {lib_ms} ms (kernel / torch.mm "
+        f"{ms['w1024'] / lib_ms}), plain {plain_ms} ms; resident d=512 {ms['r512']} ms, "
+        f"streamed d=512 {ms['s512']} ms ({flops / (ms['w1024'] * 1e-3) / 1e12} TFLOP/s "
+        f"at d=1024)")
+    rows = {"p1_fused_closed2": dict(
+        ms=ms["w1024"], plain_ms=plain_ms, bound_ms=bound_ms, library_ms=lib_ms,
+        resident_d512_ms=ms["r512"], streamed_d512_ms=ms["s512"])}
+
+    st = K.p1_chain_init(m, cand_c, a1.device)
+    chain_ms = cuda_ms(lambda: K.p1_fused_chain(a1, b1, thr, 0, st, tile, cand_c), 3)
+    st = K.p1_chain_init(m, cand_c, a1.device)
+    chain_plain = cuda_ms(lambda: K.p1_fused_chain_plain(a1, b1, thr, 0, st, tile, cand_c),
+                          1, warmup=False)
+    nbytes = (m + n) * 1024 * 2 + m * cand_c * 12 + m * 28
+    chain_bound = max(flops / PEAK_BF16, nbytes / PEAK_BYTES) * 1e3
+    rows["p1_fused_chain"] = dict(ms=chain_ms, plain_ms=chain_plain,
+                                  bound_ms=chain_bound, library_ms=lib_ms)
+
+    a_seg = a1[:seg_rows]
+    fk = K.tri_future_init(n, a1.device)
+    tri_ms = cuda_ms(lambda: K.p1_tri_fused(a_seg, b1, fk, 0, thr, tile, cand_c, 512), 3)
+    fp = K.tri_future_init(n, a1.device)
+    tri_plain = cuda_ms(lambda: K.p1_tri_fused_plain(a_seg, b1, fp, 0, thr, tile, cand_c,
+                                                     512), 1, warmup=False)
+    tri_lib = cuda_ms(lambda: torch.mm(a_seg, b1.t()), 3)
+    tri_flops = 2.0 * seg_rows * n * 1024
+    n_fut = n - seg_rows
+    nbytes = (seg_rows + n) * 1024 * 2 + n_fut * 1024 * 2 + seg_rows * (cand_c * 8 + 32)
+    tri_bound = max(tri_flops / PEAK_BF16, nbytes / PEAK_BYTES) * 1e3
+    rows["p1_tri_fused"] = dict(ms=tri_ms, plain_ms=tri_plain, bound_ms=tri_bound,
+                                library_ms=tri_lib)
+    for name, r in rows.items():
+        r.update(bound_by="operations", share=r["bound_ms"] / r["ms"],
+                 vs_library=r["ms"] / r["library_ms"])
+    log("scan kernels at d=1024 (CUDA events; p1_fused_chain one pass from the "
+        "initial state, p1_tri_fused segment 0 of 4): " + json.dumps(rows))
+    return rows
 
 
 # ----------------------------------------------------------------- phase 3d
@@ -780,11 +982,12 @@ def check_packed_hash(M, ell, dev):
 
 
 # ------------------------------------------------------------------ phase 4
-def oracle_frame_check(sgt, TfidfEncoder, StringGrouperConfig, names):
+def oracle_frame_check(sgt, TfidfEncoder, StringGrouperConfig, names, **kw):
     """Brute-force fp64 cosine oracle (dense TF-IDF of unique rows, all
     pairs) with the reference's semantics: threshold 0.8, per-row top 20 by
-    (similarity desc, column asc), symmetric closure, exact-1 diagonal."""
-    got = sgt.match_strings(pd.Series(names))
+    (similarity desc, column asc), symmetric closure, exact-1 diagonal.
+    ``kw`` goes to ``match_strings`` (e.g. ``hash_dim``)."""
+    got = sgt.match_strings(pd.Series(names), **kw)
     ell = TfidfEncoder(StringGrouperConfig()).fit_transform(names)
     dense = ell.to_dense()
     uniq, inv = np.unique(dense, axis=0, return_inverse=True)
@@ -813,7 +1016,8 @@ def oracle_frame_check(sgt, TfidfEncoder, StringGrouperConfig, names):
     )
     err = max(abs(got_pairs[k] - v) for k, v in pairs.items())
     assert err <= 1e-12, f"oracle: similarity differs by {err}"
-    log(f"oracle ({n} names): {len(pairs)} pairs equal, max |sim diff| {err}")
+    log(f"oracle ({n} names{', ' if kw else ''}{kw or ''}): {len(pairs)} pairs equal, "
+        f"max |sim diff| {err}")
 
 
 def assert_same(got, want):
@@ -906,6 +1110,26 @@ def check_verbatim_duplicates(master, dupes, matches):
                 and (kept.dupe_side != d).all(), \
                 f"duplicate {d} ({text!r}) is in the master but matched nothing at 1"
     return int(verbatim.sum()), int(verbatim.sum() - len(short)), len(short)
+
+
+# ----------------------------------------------------------------- phase 5w
+def spy_torch_op_scan(M):
+    """Count the calls of the matcher's torch-op phase-1 body
+    (``_corpus_match``: the single-device scan and its escalation) by
+    k_tile.  Returns ``(restore, calls)``."""
+    real = M._corpus_match
+    calls = Counter()
+
+    def counted(a, b, thr, cand_c, k_tile):
+        calls[k_tile] += 1
+        return real(a, b, thr, cand_c, k_tile)
+
+    M._corpus_match = counted
+
+    def restore():
+        M._corpus_match = real
+
+    return restore, calls
 
 
 # ------------------------------------------------------------------ phase 6
@@ -1168,13 +1392,13 @@ def rank_main(args) -> int:
     # virtual mesh over the card, WORLD x SLOTS devices in all
     slot_mesh = Mesh([[torch.device("cuda", 0)] * SLOTS])
 
-    def sharded_slots(label, series, want):
+    def sharded_slots(label, series, want, **kw):
         """A sharded fit over the rank's slots: the single-process frame,
         and ``p1_fused_closed2`` launched once per slot on every kt = 2
         pass (the ladder's wider rungs run the torch-op body)."""
         restore, report = spy_rank_scan(MH, SLOTS)
         try:
-            frame, sg, wall = fit(series, multihost="sharded", mesh=slot_mesh)
+            frame, sg, wall = fit(series, multihost="sharded", mesh=slot_mesh, **kw)
         finally:
             restore()
         check(label, frame, want, DEFAULT_PATH, wall, sg)
@@ -1210,6 +1434,11 @@ def rank_main(args) -> int:
         frame, sg, wall = fit(s20, tfidf_matrix_dtype=np.float32)
         check(f"float32 self-join {N_FRAME}", frame, "f32", PACKED_PATH, wall, sg)
         sharded_slots(f"self-join {N_FRAME} sharded, {SLOTS} slots", s20, "self")
+        # past d = 512 the slots' kt = 2 passes take the streamed scan; any
+        # hash width gives the same exact frame
+        _, _, sc = sharded_slots(f"self-join {N_FRAME} sharded, {SLOTS} slots, "
+                                 f"hash_dim=1024", s20, "self", hash_dim=1024)
+        assert {p["d"] for p in sc["scan_passes"]} == {1024}, sc["scan_passes"]
 
         s_full = pd.Series(synthetic_company_names(N_FULL))
         frame, sg, wall = fit(s_full)
@@ -1288,8 +1517,9 @@ def main() -> int:
         assert "serialized" not in text and not re.search(
             r"[1-9]\d* bytes (spill|stack|cumulative stack)", text), \
             f"csrc/{name}.cu: stack, spills or serialized wgmma"
+    # two instantiations: A resident (d <= 512) and A streamed (wider)
     regs = re.findall(r"Used (\d+) registers", report["p1_fused_closed2"])
-    assert regs == [str(CLOSED2_REGISTERS)], f"p1_fused_closed2 registers {regs}"
+    assert regs == [str(CLOSED2_REGISTERS)] * 2, f"p1_fused_closed2 registers {regs}"
 
     # ---- phases 2-3: kernels against their plain versions -----------------
     stamp("phases 2-3e: kernels against their plain versions")
@@ -1303,7 +1533,9 @@ def main() -> int:
 
         raise RuntimeError(f"no byte-level payload (native build: {BUILD_ERROR})")
     thr = float(M.effective_threshold(0.8))
-    h, res_hash = check_hash(K, M, ell_full.device_src, dev)
+    payload = ell_full.device_src
+    hinp = hash_inputs(M, payload, dev)
+    h, res_hash = check_hash(K, M, payload, dev, hinp)
     res_p1 = check_p1(K, h, thr)
     stamp("phase 2c: the epilogue A/B kernels")
     res_floor, res_variant = check_epilogue_ab(K, h, thr)
@@ -1317,7 +1549,18 @@ def main() -> int:
     res_tri["max_abs_err"] = max(res_tri["max_abs_err"], check_tri_domain(K, h, thr))
     torch.cuda.empty_cache()
     tri_launches = tri_square_ab(K, M, h, ell_full.device_src, thr)
-    del h
+    stamp("phase 2w: the scan kernels past d = 512 (A streamed)")
+    h1024, err_hash = hash_vs_plain(K, payload, hinp, 1024)
+    res_hash["max_abs_err"] = max(res_hash["max_abs_err"], err_hash)
+    del hinp
+    err_scan, err_tri = check_wide(K, h1024, thr, dev)
+    for res in (res_p1, res_chain):
+        res["max_abs_err"] = max(res["max_abs_err"], err_scan)
+    res_tri["max_abs_err"] = max(res_tri["max_abs_err"], err_tri)
+    torch.cuda.empty_cache()
+    stamp("phase 2x: time at d = 1024")
+    wide_rows = time_wide(K, h, h1024, thr)
+    del h, h1024
     torch.cuda.empty_cache()
     stamp("phase 3f: the packed-slot torch op")
     check_packed_hash(M, ell_full, dev)
@@ -1585,6 +1828,88 @@ def main() -> int:
         f"{tf32_after} after them: unchanged")
     torch.set_float32_matmul_precision(tf32_before[1])
 
+    # ---- phase 5w: the main path at hash_dim = 1024 ------------------------
+    stamp(f"phase 5w: the {N_FULL}-name self-join at hash_dim=1024")
+    wide = dict(hash_dim=1024)
+    restore, body = spy_torch_op_scan(M)
+    K.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        grouper = sgt.StringGrouper(s_full, **wide).fit()
+        frame = grouper.get_matches()
+    finally:
+        restore()
+    wall = time.perf_counter() - t0
+    l_wide = dict(K.LAUNCHES)
+    secs = grouper.timings.seconds
+    esc = {k[len("match.esc_rows_"):]: v for k, v in secs.items()
+           if k.startswith("match.esc_rows_")}
+    log(f"full self-join (hash_dim=1024): n={N_FULL} wall {wall:.3f} s, match.p1_wait "
+        f"{secs['match.p1_wait']:.3f} s, {len(frame)} rows; pairs rescored "
+        f"{secs['match.pairs_scored']}; escalated rows per round and kt {esc}; "
+        f"launches {l_wide}; torch-op phase-1 body calls by k_tile {dict(body)}")
+    log("timings: " + json.dumps(
+        {k: (round(v, 4) if isinstance(v, float) else v) for k, v in secs.items()}))
+    assert l_wide["p1_fused_closed2"] > 0, f"hash_dim=1024 launches {l_wide}"
+    assert l_wide["device_hash_codes"] > 0, f"hash_dim=1024 launches {l_wide}"
+    assert body[2] == 0, f"a kt=2 pass ran the torch-op body at hash_dim=1024: {body}"
+    assert_off_path(l_wide, "663k hash_dim=1024")
+    assert len(frame) == ROWS_FULL, f"{len(frame)} output rows, expected {ROWS_FULL}"
+    pd.testing.assert_frame_equal(frame, out)
+    log("hash_dim=1024 self-join: frame equal to the default (hash_dim=512) run's")
+    del grouper, frame
+    os.environ["SG_TPU_CHUNKED_P1"] = "1"
+    try:
+        K.reset_launches()
+        frame = sgt.match_strings(s_full, **wide)
+        l_wide_chunked = dict(K.LAUNCHES)
+    finally:
+        del os.environ["SG_TPU_CHUNKED_P1"]
+    assert l_wide_chunked["p1_fused_chain"] > 0, f"chunked launches {l_wide_chunked}"
+    assert_off_path(l_wide_chunked, "663k hash_dim=1024 chunked")
+    pd.testing.assert_frame_equal(frame, out)
+    log(f"hash_dim=1024 self-join, SG_TPU_CHUNKED_P1=1: frame equal to the default "
+        f"run's; launches {l_wide_chunked}")
+    del frame
+
+    stamp(f"phase 5w: hash_dim=1024 at {N_FRAME} names (card, CPU, SG_TPU_FUSED=0, "
+          f"(2, 2) mesh) and the oracle at {N_ORACLE}")
+    K.reset_launches()
+    t0 = time.perf_counter()
+    card_w = sgt.match_strings(s20, **wide)
+    t_card = time.perf_counter() - t0
+    l_card = dict(K.LAUNCHES)
+    assert l_card["p1_fused_closed2"] > 0, f"20k hash_dim=1024 launches {l_card}"
+    t0 = time.perf_counter()
+    pd.testing.assert_frame_equal(card_w, sgt.match_strings(s20, device="cpu", **wide))
+    t_cpu = time.perf_counter() - t0
+    pd.testing.assert_frame_equal(card_w, frames4["default"])
+    K.reset_launches()
+    os.environ["SG_TPU_FUSED"] = "0"
+    try:
+        t0 = time.perf_counter()
+        off_w = sgt.match_strings(s20, **wide)
+        t_off = time.perf_counter() - t0
+    finally:
+        del os.environ["SG_TPU_FUSED"]
+    l_off = dict(K.LAUNCHES)
+    assert l_off["p1_fused_closed2"] == 0, f"SG_TPU_FUSED=0 launches {l_off}"
+    pd.testing.assert_frame_equal(off_w, card_w)
+    K.reset_launches()
+    mesh_w = sgt.match_strings(s20, mesh=Mesh([[dev] * 2 for _ in range(2)]), **wide)
+    l_mesh_w = dict(K.LAUNCHES)
+    # one segment at 20,000 names (phase 6's (2, 2) run): one launch per shard
+    assert l_mesh_w["p1_fused_closed2"] == 4, f"20k (2, 2) mesh launches {l_mesh_w}"
+    pd.testing.assert_frame_equal(mesh_w, card_w)
+    log(f"hash_dim=1024 ({N_FRAME} names): card == cpu == the hash_dim=512 frame, "
+        f"{len(card_w)} rows; card {t_card:.3f} s with the kernel (launches {l_card}), "
+        f"{t_off:.3f} s under SG_TPU_FUSED=0 (the torch-op body, launches {l_off}), "
+        f"cpu {t_cpu:.2f} s; (2, 2) mesh equal, launches {l_mesh_w}")
+    del card_w, off_w, mesh_w
+    oracle_frame_check(sgt, TfidfEncoder, StringGrouperConfig,
+                       synthetic_company_names(N_ORACLE), **wide)
+
     # ---- phase 6: the mesh tier -------------------------------------------
     stamp("phase 6: the mesh tier at 20,000 names")
 
@@ -1720,19 +2045,23 @@ def main() -> int:
         dict(name="p1_fused_closed2", route="cuda",
              source=src.format("p1_fused_closed2"), replaces=pk.format(117),
              launches=launches["p1_fused_closed2"] + l_mesh["p1_fused_closed2"]
-             + l_slots["p1_fused_closed2"],
-             **res_p1),
+             + l_slots["p1_fused_closed2"] + l_wide["p1_fused_closed2"],
+             **res_p1, d1024=dict(wide_rows["p1_fused_closed2"],
+                                  launches=l_wide["p1_fused_closed2"])),
         dict(name="p1_fused_chain", route="cuda",
              source=src.format("p1_fused_chain"), replaces=pk.format(275),
-             launches=chain_launches, **res_chain),
+             launches=chain_launches + l_wide_chunked["p1_fused_chain"], **res_chain,
+             d1024=dict(wide_rows["p1_fused_chain"],
+                        launches=l_wide_chunked["p1_fused_chain"])),
         dict(name="p1_tri_fused", route="cuda",
              source=src.format("p1_tri_fused"), replaces=pk.format(626),
-             launches=tri_launches, **res_tri),
+             launches=tri_launches, **res_tri,
+             d1024=dict(wide_rows["p1_tri_fused"], launches=0)),
         dict(name="device_hash_codes", route="cuda",
              source=src.format("device_hash_codes"),
              replaces="string_grouper_tpu/ops/matcher.py:398",
              launches=launches["device_hash_codes"] + l_mesh["device_hash_codes"]
-             + l_slots["device_hash_codes"],
+             + l_slots["device_hash_codes"] + l_wide["device_hash_codes"],
              **res_hash),
         dict(name="p1_mm_floor", route="cuda", source=src.format("p1_mm_floor"),
              replaces="benchmarks/ab_p1_epilogue.py:66", **res_floor),

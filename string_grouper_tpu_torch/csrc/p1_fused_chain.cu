@@ -4,7 +4,8 @@
 // Replaces the Pallas kernel p1_fused_chain of the JAX package
 // (string_grouper_tpu/ops/pallas_kernels.py:275-358, body _p1_chain_body
 // :183-257).  The scan, what bounds it and its design (TMA, wgmma,
-// epilogue from registers) are in p1_scan_sm90.cuh (mode kChain).  It
+// epilogue from registers) are in p1_scan_sm90.cuh (mode kChain; A
+// resident up to d = 512, streamed past it).  It
 // differs from p1_fused_closed2 in three ways:
 // * the running top-C (v, c) is the caller's state, updated in place, and
 //   the per-row counters start from the state's meta [counts, tmax, nfin]
@@ -43,5 +44,5 @@ extern "C" int p1_fused_chain(const void* a, const void* b, float thr,
   p.counts = static_cast<int*>(counts);
   p.tmax = static_cast<int*>(tmax);
   p.bound = static_cast<float*>(bound);
-  return p1h::launch<p1h::kChain>(p, stream);
+  return p1h::launch_scan<p1h::kChain>(p, stream);
 }

@@ -5,7 +5,8 @@
 // (string_grouper_tpu/ops/pallas_kernels.py:117-179, body _p1_body :47-114,
 // rank insert _rank_insert2 :362-380).  The scan, what bounds it and its
 // design (TMA, wgmma, epilogue from registers) are in p1_scan_sm90.cuh
-// (mode kClosed).  At the end: bound = max(tile drop bound, v[C-1] when
+// (mode kClosed; A resident up to d = 512, streamed through the ring
+// past it).  At the end: bound = max(tile drop bound, v[C-1] when
 // more than C finite candidates were extracted); ship = column where
 // v > -inf else -1 (the valid entries form a prefix), written over the
 // running column buffer.
@@ -31,5 +32,5 @@ extern "C" int p1_fused_closed2(const void* a, const void* b, float thr,
   p.counts = static_cast<int*>(counts);
   p.tmax = static_cast<int*>(tmax);
   p.bound = static_cast<float*>(bound);
-  return p1h::launch<p1h::kClosed>(p, stream);
+  return p1h::launch_scan<p1h::kClosed>(p, stream);
 }

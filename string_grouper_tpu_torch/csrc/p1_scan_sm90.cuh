@@ -41,7 +41,8 @@
 //   is this loop, so every row sees its rank inserts in column order and
 //   chained passes over tile-aligned chunks are bitwise one pass.
 // * 3 warpgroups.  Warpgroup 2 is the producer: one thread issues TMA
-//   loads.  A's 128 x d rows arrive once, as d/64 boxes of 128 rows x 64 k
+//   loads.  A's 128 x d rows arrive once (d <= 512; wider A streams, see
+//   below), as d/64 boxes of 128 rows x 64 k
 //   in the 128-byte swizzled K-major layout that wgmma reads (TMA fills rows
 //   past m with zeros); B streams through a ring of 5-8 stages (128 columns
 //   x 64 k, 16 KB each; as many as fit, at most 8) with full/empty
@@ -113,12 +114,25 @@
 //   per-thread counter; no tile state, no rank insert, no top-C buffers.
 //   The counters are summed across the quad once, after the walk.  The
 //   product's k order is kClosed's, so the counts are its bits.
+// * Streamed A (STREAM_A, kClosed / kChain / kTri at 128 rows): A's 128
+//   resident rows take d * 256 bytes, 256 KB at d = 1024, more than a
+//   block has.  Past d = RESIDENT_MAX_D (512: 128 KB of A beside a 6-stage
+//   ring; 640 would leave 4 stages, 768 two) every ring stage carries A's
+//   box (128 rows x 64 k) of its k block beside B's, 32 KB, one full
+//   barrier expecting both; nothing of A stays resident.  The k blocks
+//   still run in ascending order within a sub-block, so a streamed scan
+//   gives the resident scan's bits (p1h_force_stream_a checks that at
+//   d <= 512).  Every block now reads A from L2 once per sub-block as
+//   well: 64 operations per byte loaded instead of 128, so the scan is
+//   bound by L2 reads there (on the H100: 6.1-7.4 TB/s, 39% of the
+//   tensor-core bound at d = 1024).
 //
 // Left for later: wave quantization (one block of 128 rows per SM: 576
 // blocks on 132 SMs at the 663k segment, 4.36 waves); thread-block
 // clusters with TMA multicast of B to two SMs, which halves B's L2 traffic
 // -- the next lever if the scan is bound by L2 reads rather than the
-// tensor cores.
+// tensor cores; for streamed A, the same with two column-neighbour blocks
+// sharing A's boxes.
 
 #pragma once
 
@@ -134,6 +148,7 @@ constexpr int BN = 128;         // right columns per sub-block
 constexpr int BK = 64;          // k per TMA box (128 bytes: one swizzle row)
 constexpr int BOX = BN * BK * 2;  // bytes of one box of B (and of A's 128 rows)
 constexpr int MAX_STAGES = 8;
+constexpr int RESIDENT_MAX_D = 512;  // widest A kept resident (else streamed)
 constexpr int SMEM_LIMIT = 232448;  // a block's shared memory on the H100
 constexpr int kEncodeError = 10000;
 constexpr float NEG = -__builtin_huge_valf();
@@ -147,7 +162,7 @@ struct Args {
   const __nv_bfloat16* B;  // (n, d) the walked right columns
   float thr;
   int m, n, d, tile, cand_c;
-  int stages;     // B ring depth (set by launch)
+  int stages;     // ring depth (set by launch)
   int col_bufs;   // kTri: column-statistics buffers (set by launch)
   int col_off;    // global column id of B's first row
   float* v;       // (m, cand_c) running top-C values
@@ -573,9 +588,10 @@ __device__ __forceinline__ void close_tile(Rows& r, const Args& p, int row_lo,
 // columns: the column side into buffer sb % col_bufs; the last of the 8
 // consumer warps to finish the sub-block (a counter per buffer) flushes
 // it, so no warp waits for another.  A warp cannot reach the buffer's next
-// sub-block before that flush: it would need a B stage that the producer
-// loads only after every warp has released a stage issued after its
-// epilogue of sb, and launch gives col_bufs * (d / 64) > stages.
+// sub-block before that flush: it would need a ring stage that the
+// producer loads only after every warp has released a stage issued after
+// its epilogue of sb, and launch gives col_bufs * (d / 64) > stages (a
+// stage holds one k block, resident A or streamed).
 template <int MODE, int TIE>
 __device__ __forceinline__ void epilogue(Rows& r, const float (&acc)[64],
                                          const Args& p, int sb, int row_lo,
@@ -636,15 +652,23 @@ struct Ring {
   }
 };
 
-// Issue the 4 wgmmas of B stage `ring.st` (k block kb) into acc, as one
+// Bytes of one ring stage: B's box, and with STREAM_A A's box before it.
+__host__ __device__ constexpr int stage_bytes(bool stream_a) {
+  return stream_a ? 2 * BOX : BOX;
+}
+
+// Issue the 4 wgmmas of ring stage `ring.st` (k block kb) into acc, as one
 // commit group; then wait for the previous group and release its stage.
-// A's k blocks lie ROWS x 128 bytes apart.
-template <int ROWS>
+// Resident A: `a_wg` is the warpgroup's rows of k block 0, k blocks lie
+// ROWS x 128 bytes apart.  STREAM_A: `a_wg` is the warpgroup's offset in
+// the stage's A box.
+template <int ROWS, bool STREAM_A>
 __device__ __forceinline__ void mma_stage(float (&acc)[64], Ring& ring,
                                           uint32_t a_wg, int kb, int lane) {
   mbar_wait(ring.full(ring.st), ring.ph);
-  const uint32_t a = a_wg + kb * (ROWS * BK * 2);
-  const uint32_t b = ring.b0 + ring.st * BOX;
+  const uint32_t stage = ring.b0 + ring.st * stage_bytes(STREAM_A);
+  const uint32_t a = STREAM_A ? stage + a_wg : a_wg + kb * (ROWS * BK * 2);
+  const uint32_t b = STREAM_A ? stage + BOX : stage;
   fence_regs(acc);
   wgmma_fence();
 #pragma unroll
@@ -662,23 +686,26 @@ __device__ __forceinline__ void mma_stage(float (&acc)[64], Ring& ring,
 // then the producer warpgroup.
 __host__ __device__ constexpr int threads(int rows) { return 2 * rows + 128; }
 
-template <int MODE, int ROWS = BM, int TIE = kFirst>
+template <int MODE, int ROWS = BM, int TIE = kFirst, bool STREAM_A = false>
 __global__ void __launch_bounds__(threads(ROWS), 1)
     scan_kernel(const __grid_constant__ CUtensorMap tm_a,
                 const __grid_constant__ CUtensorMap tm_b, const Args p) {
   static_assert(ROWS == BM || ROWS == 64, "a block holds 128 or 64 rows");
   static_assert((ROWS == BM && TIE == kFirst) || MODE == kClosed,
                 "the switches are kClosed's");
+  static_assert(!STREAM_A || (ROWS == BM && TIE == kFirst && MODE != kCount),
+                "A streams in kClosed, kChain and kTri at 128 rows");
   constexpr int CWG = ROWS / 64;     // consumer warpgroups
   constexpr int NTR = threads(ROWS);
+  constexpr int STAGE = stage_bytes(STREAM_A);
   extern __shared__ unsigned char smem_raw[];
   // 128-byte swizzled boxes must sit on 1024-byte boundaries.
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const int nkb = p.d / BK;
   const int S = p.stages;
-  const uint32_t a_s = base;
-  const uint32_t b_s = a_s + nkb * (ROWS * BK * 2);
-  const uint32_t bars = b_s + S * BOX;  // full[S], empty[S], a_full
+  const uint32_t a_s = base;  // resident A (none when it streams)
+  const uint32_t b_s = a_s + (STREAM_A ? 0 : nkb * (ROWS * BK * 2));
+  const uint32_t bars = b_s + S * STAGE;  // full[S], empty[S], a_full
   const uint32_t a_full = bars + 16 * S;
   // kTri: the column-statistics buffers, after the barriers' 256 bytes
   ColStage* cst =
@@ -708,16 +735,21 @@ __global__ void __launch_bounds__(threads(ROWS), 1)
     // ---- producer warpgroup: one thread keeps the TMA loads in flight ----
     if (CWG == 2) asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
     if (tid == CWG * 128) {
-      mbar_expect_tx(a_full, nkb * (ROWS * BK * 2));
-      for (int kb = 0; kb < nkb; ++kb)
-        tma_load(a_s + kb * (ROWS * BK * 2), &tm_a, kb * BK, row0, a_full);
+      if (!STREAM_A) {
+        mbar_expect_tx(a_full, nkb * (ROWS * BK * 2));
+        for (int kb = 0; kb < nkb; ++kb)
+          tma_load(a_s + kb * (ROWS * BK * 2), &tm_a, kb * BK, row0, a_full);
+      }
       int st = 0;
       uint32_t ph = 0;
       for (int sb = 0; sb < n_sub; ++sb) {
         for (int kb = 0; kb < nkb; ++kb) {
           mbar_wait(bars + 8 * (S + st), ph ^ 1);
-          mbar_expect_tx(bars + 8 * st, BOX);
-          tma_load(b_s + st * BOX, &tm_b, kb * BK, sb * BN, bars + 8 * st);
+          mbar_expect_tx(bars + 8 * st, STAGE);
+          const uint32_t dst = b_s + st * STAGE;
+          if (STREAM_A) tma_load(dst, &tm_a, kb * BK, row0, bars + 8 * st);
+          tma_load(STREAM_A ? dst + BOX : dst, &tm_b, kb * BK, sb * BN,
+                   bars + 8 * st);
           if (++st == S) {
             st = 0;
             ph ^= 1;
@@ -763,24 +795,26 @@ __global__ void __launch_bounds__(threads(ROWS), 1)
     }
 
     Ring ring{b_s, bars, S};
-    const uint32_t a_wg = a_s + wg * 64 * 128;  // this warpgroup's 64 rows
+    // this warpgroup's 64 rows: in resident A, or their offset in a stage
+    const uint32_t a_wg = (STREAM_A ? 0 : a_s) + wg * 64 * 128;
     float acc0[64], acc1[64];
-    mbar_wait(a_full, 0);
+    if (!STREAM_A) mbar_wait(a_full, 0);
 
     // sub-block 0 into acc0; then per pair of sub-blocks: issue the next
     // sub-block's first stage, finish and consume the current one, issue
     // the rest (n_sub is even: n is a multiple of tile, tile of 256).
-    for (int kb = 0; kb < nkb; ++kb) mma_stage<ROWS>(acc0, ring, a_wg, kb, lane);
+    constexpr bool SA = STREAM_A;
+    for (int kb = 0; kb < nkb; ++kb) mma_stage<ROWS, SA>(acc0, ring, a_wg, kb, lane);
     for (int sb = 0;; sb += 2) {
-      mma_stage<ROWS>(acc1, ring, a_wg, 0, lane);  // sub-block sb is complete
+      mma_stage<ROWS, SA>(acc1, ring, a_wg, 0, lane);  // sub-block sb is complete
       fence_regs(acc0);
       epilogue<MODE, TIE>(r, acc0, p, sb, row_lo, rloc, lane, cst);
-      for (int kb = 1; kb < nkb; ++kb) mma_stage<ROWS>(acc1, ring, a_wg, kb, lane);
+      for (int kb = 1; kb < nkb; ++kb) mma_stage<ROWS, SA>(acc1, ring, a_wg, kb, lane);
       if (sb + 2 == n_sub) break;
-      mma_stage<ROWS>(acc0, ring, a_wg, 0, lane);  // sub-block sb + 1 is complete
+      mma_stage<ROWS, SA>(acc0, ring, a_wg, 0, lane);  // sub-block sb + 1 is complete
       fence_regs(acc1);
       epilogue<MODE, TIE>(r, acc1, p, sb + 1, row_lo, rloc, lane, cst);
-      for (int kb = 1; kb < nkb; ++kb) mma_stage<ROWS>(acc0, ring, a_wg, kb, lane);
+      for (int kb = 1; kb < nkb; ++kb) mma_stage<ROWS, SA>(acc0, ring, a_wg, kb, lane);
     }
     wgmma_wait<0>();
     if (lane == 0) mbar_arrive(ring.empty(ring.prev));
@@ -882,35 +916,56 @@ inline int make_map(CUtensorMap* map, const void* ptr, int64_t rows, int64_t d,
 }
 
 // Launch one block per ROWS rows on `stream`; returns the cudaError_t (or
-// kEncodeError + CUresult when a TMA descriptor cannot be built).
-template <int MODE, int ROWS = BM, int TIE = kFirst>
+// kEncodeError + CUresult when a TMA descriptor cannot be built).  A ring
+// needs 2 stages (a consumer waits for the next stage before it releases
+// the last); a width whose resident A leaves fewer is refused.
+template <int MODE, int ROWS = BM, int TIE = kFirst, bool STREAM_A = false>
 inline int launch(Args p, void* stream) {
+  constexpr int STAGE = stage_bytes(STREAM_A);
   CUtensorMap tm_a, tm_b;
   int e = make_map(&tm_a, p.A, p.m, p.d, ROWS);
   if (e == 0) e = make_map(&tm_b, p.B, p.n, p.d);
   if (e != 0) return e;
   const int nkb = p.d / BK;
-  const int a_bytes = nkb * ROWS * BK * 2;
+  const int a_bytes = STREAM_A ? 0 : nkb * ROWS * BK * 2;
   const int room = SMEM_LIMIT - 1024 - 256 - a_bytes;  // alignment, barriers
-  p.stages = room / BOX < MAX_STAGES ? room / BOX : MAX_STAGES;
+  p.stages = room / STAGE < MAX_STAGES ? room / STAGE : MAX_STAGES;
   p.col_bufs = 0;
   if (MODE == kTri) {
     // col_bufs * nkb > stages (see epilogue), with as deep a ring as fits
-    for (;; --p.stages) {
+    for (; p.stages >= 2; --p.stages) {
       p.col_bufs = p.stages / nkb + 1;
-      if (p.stages * BOX + col_bytes(p.col_bufs) <= room) break;
+      if (p.stages * STAGE + col_bytes(p.col_bufs) <= room) break;
     }
   }
-  const size_t smem = 1024 + a_bytes + static_cast<size_t>(p.stages) * BOX + 256 +
-                      col_bytes(p.col_bufs);
+  if (p.stages < 2) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = 1024 + a_bytes + static_cast<size_t>(p.stages) * STAGE +
+                      256 + col_bytes(p.col_bufs);
   cudaError_t err = cudaFuncSetAttribute(
-      scan_kernel<MODE, ROWS, TIE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      scan_kernel<MODE, ROWS, TIE, STREAM_A>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const unsigned blocks = static_cast<unsigned>((p.m + ROWS - 1) / ROWS);
-  scan_kernel<MODE, ROWS, TIE>
+  scan_kernel<MODE, ROWS, TIE, STREAM_A>
       <<<blocks, threads(ROWS), smem, static_cast<cudaStream_t>(stream)>>>(tm_a, tm_b, p);
   return static_cast<int>(cudaGetLastError());
 }
 
+// Tests only: stream A at every width (set through p1h_force_stream_a).
+inline bool force_stream_a = false;
+
+// kClosed, kChain and kTri at any width: A resident up to
+// RESIDENT_MAX_D, streamed through the ring past it, or whenever
+// force_stream_a is set (the check that the two give the same bits).
+template <int MODE>
+inline int launch_scan(const Args& p, void* stream) {
+  return force_stream_a || p.d > RESIDENT_MAX_D
+             ? launch<MODE, BM, kFirst, true>(p, stream)
+             : launch<MODE>(p, stream);
+}
+
 }  // namespace p1h
+
+// The test switch of every library built on this scan: nonzero streams A
+// through the ring where it would fit resident too.
+extern "C" void p1h_force_stream_a(int on) { p1h::force_stream_a = on != 0; }

@@ -23,9 +23,10 @@
 // Design: two launches on the caller's stream.
 // (a) scan_kernel<kTri> (p1_scan_sm90.cuh): the TMA/wgmma scan of
 //     p1_fused_closed2 with its row-side epilogue from registers, walking
-//     B from column j0 * tile; for the future columns the same registers
-//     also give (count, row sum, max, first argmax row, second max) per
-//     (128-row chunk, column), through shared-memory atomics into global
+//     B from column j0 * tile (A resident up to d = 512, streamed through
+//     the ring past it); for the future columns the same registers also
+//     give (count, row sum, max, first argmax row, second max) per (128-row
+//     chunk, column), through shared-memory atomics into global
 //     statistics.  Each (I, j) product is computed once.
 // (b) tri_fold_kernel: one thread per future column walks I, then k, then
 //     the block_m / 128 chunks of sub-block k in order, merges the chunk
@@ -164,7 +165,7 @@ extern "C" int p1_tri_fused(const void* a, const void* b, float thr,
   p.st_row = si + 2 * size;
   p.st_v = sf;
   p.st_v2 = sf + size;
-  int e = p1h::launch<p1h::kTri>(p, stream);
+  int e = p1h::launch_scan<p1h::kTri>(p, stream);
   if (e != 0 || n_fut == 0) return e;
   constexpr int threads = 256;
   const unsigned blocks = static_cast<unsigned>((n_fut + threads - 1) / threads);

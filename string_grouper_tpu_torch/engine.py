@@ -76,6 +76,12 @@ def _warn_legacy_kwargs(kwargs: dict) -> None:
         )
 
 
+def _round3(v):
+    """A match stat as ``timings`` keeps it: floats to 3 places (as the JAX
+    package's engine), counts as they are."""
+    return round(v, 3) if isinstance(v, float) else v
+
+
 def _empty_matches_list() -> pd.DataFrame:
     return pd.DataFrame(
         {
@@ -118,9 +124,7 @@ class StringGrouper:
         _warn_legacy_kwargs(kwargs)
         self._config: StringGrouperConfig = StringGrouperConfig(**kwargs)
         #: per-phase wall times of the most recent fit, plus the matcher's
-        #: stats as ``match.<name>``.  The stats are copied unrounded, where
-        #: the JAX package rounds float stats to 3 places: a reader
-        #: comparing the two sees more digits here, not other values.
+        #: stats as ``match.<name>`` (float stats rounded to 3 places).
         self.timings = PhaseTimings()
 
         self._set_data(master, duplicates, master_id, duplicates_id)
@@ -282,7 +286,7 @@ class StringGrouper:
         if stats_src is None:  # no attachment: read the module mirror
             from .ops.matcher import LAST_STATS as stats_src
         for k, v in stats_src.items():
-            self.timings.seconds[f"match.{k}"] = v
+            self.timings.seconds[f"match.{k}"] = _round3(v)
         self._store_pairs(pairs)
         return self
 
@@ -346,7 +350,7 @@ class StringGrouper:
             )
         self.timings.labels["multihost_tier"] = tier
         for k, v in stages.items():
-            self.timings.seconds[f"match.mh_{k}"] = v
+            self.timings.seconds[f"match.mh_{k}"] = _round3(v)
         self._store_pairs(pairs)
         return self
 

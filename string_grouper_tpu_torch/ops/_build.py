@@ -10,6 +10,7 @@ is prebuilt or downloaded.  Pointers and the stream cross the C boundary as
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -164,6 +165,25 @@ def load(name: str) -> ctypes.CDLL:
             fn.restype = ctypes.c_int
             _LIBS[name] = lib
     return _LIBS[name]
+
+
+#: the libraries whose scan streams A past d = 512 (csrc/p1_scan_sm90.cuh)
+STREAM_A_KERNELS = ("p1_fused_closed2", "p1_fused_chain", "p1_tri_fused")
+
+
+@contextlib.contextmanager
+def force_stream_a(on: bool = True):
+    """Tests only: while the block runs, the scans of ``STREAM_A_KERNELS``
+    stream A through their ring at d <= 512 too, where they keep it
+    resident; the two must give the same bits.  Off again on exit."""
+    libs = [load(n) for n in STREAM_A_KERNELS] if on else []
+    for lib in libs:
+        lib.p1h_force_stream_a(1)
+    try:
+        yield
+    finally:
+        for lib in libs:
+            lib.p1h_force_stream_a(0)
 
 
 #: offset of a CUresult from cuTensorMapEncodeTiled in a launch's return

@@ -136,13 +136,12 @@ def _check_tensors(name: str, *tensors: torch.Tensor) -> None:
 def p1_fused_supported(m: int, n_pad: int, d: int, tile: int,
                        cand_c: int) -> bool:
     """Shapes the fused kernel handles (the torch-op scan covers the rest):
-    the JAX package's rule (pallas_kernels.py:729-743) plus ``d <= 512``,
-    because the CUDA kernels keep their 128 left rows of width d in shared
-    memory (128 x 512 bf16 = 128 KB of the block's 227 KB, beside the ring
-    of B stages)."""
+    the JAX package's rule (pallas_kernels.py:729-743), at every width.  The
+    CUDA scan keeps its 128 left rows resident in shared memory up to
+    d = 512 (128 KB of the block's 227 KB) and streams them through its
+    ring beside B past that (csrc/p1_scan_sm90.cuh)."""
     return (
         d % 128 == 0
-        and d <= 512
         and m >= 256
         and m % min(512, m) == 0
         and n_pad % tile == 0
@@ -362,8 +361,10 @@ def p1_fused_chain(a_hash: torch.Tensor, b_chunk: torch.Tensor,
 
 # ------------------------------------- the epilogue's A/B: floor and variant
 def p1_mm_floor_supported(m: int, n: int, d: int) -> bool:
-    """Shapes ``p1_mm_floor`` takes: the scan's (d a multiple of 128 up to
-    512, whole pairs of 128-column sub-blocks), any number of rows."""
+    """Shapes ``p1_mm_floor`` takes: the scan's with A resident (d a
+    multiple of 128 up to 512, the probe's width, benchmarks/
+    ab_p1_epilogue.py:34), whole pairs of 128-column sub-blocks, any
+    number of rows."""
     return d % 128 == 0 and 0 < d <= 512 and m > 0 and n > 0 and n % 256 == 0
 
 
@@ -421,6 +422,14 @@ VARIANT_BLOCK_ROWS = (128, 64)
 VARIANT_ARGMAX = ("first", "minidx")
 
 
+def p1_closed2_variant_supported(m: int, n_pad: int, d: int, tile: int,
+                                 cand_c: int) -> bool:
+    """Shapes ``p1_closed2_variant`` takes: ``p1_fused_supported``'s up to
+    d = 512, the probe's width (benchmarks/ab_p1_epilogue.py:34): its
+    instantiations keep A resident."""
+    return d <= 512 and p1_fused_supported(m, n_pad, d, tile, cand_c)
+
+
 def _variant_switches(block_rows: int, argmax: str) -> None:
     if block_rows not in VARIANT_BLOCK_ROWS or argmax not in VARIANT_ARGMAX:
         raise ValueError(
@@ -469,7 +478,7 @@ def p1_closed2_variant(a_hash: torch.Tensor, b_hash: torch.Tensor,
         raise TypeError("p1_closed2_variant: a_hash and b_hash must be bfloat16")
     if b_hash.shape[1] != d:
         raise ValueError("p1_closed2_variant: hash widths differ")
-    if not p1_fused_supported(m, n, d, tile, cand_c):
+    if not p1_closed2_variant_supported(m, n, d, tile, cand_c):
         raise ValueError(
             f"p1_closed2_variant: unsupported shape m={m} n={n} d={d} "
             f"tile={tile} cand_c={cand_c}"

@@ -191,4 +191,5 @@ def test_tri_supported_shapes():
     assert not K.p1_tri_supported(65536, 499712, 512, 4096, 64, 64)  # chunks
     assert not K.p1_tri_supported(4096 + 2048, 65536, 512, 4096, 64)  # tiles
     assert not K.p1_tri_supported(4096, 1 << 24, 512, 4096, 64)  # f32 counts
-    assert not K.p1_tri_supported(4096, 8192, 1024, 4096, 64)  # smem
+    assert K.p1_tri_supported(4096, 8192, 1024, 4096, 64)  # A streams
+    assert not K.p1_tri_supported(4096, 8192, 192, 4096, 64)  # lanes

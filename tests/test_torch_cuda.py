@@ -9,7 +9,9 @@ Tolerances: ``p1_fused_closed2``, ``p1_fused_chain`` and ``p1_tri_fused``
 on dyadic inputs (every f32 sum of the bf16 products is exact in any order)
 must EQUAL their plain versions -- the running buffers' column ids where
 their values are finite (the ids of -inf slots are unspecified: the kernels
-skip inserts without a qualified score, the plain versions do not);
+skip inserts without a qualified score, the plain versions do not) -- at
+widths up to the config's 32768, where A streams through the ring past
+512, and streamed at d <= 512 they must give the resident scan's bits;
 ``device_hash_codes`` must be within 1 bf16 ulp of its plain version (which
 on the card sums by atomics in no fixed order) and bitwise repeatable.  The
 packed-slot torch op ``_device_hash`` must equal itself on the CPU bitwise,
@@ -78,6 +80,10 @@ def _dyadic(n, d, seed=0, nnz=20, step=2.0 ** -7):
     (256, 4096, 384, 1024, 24, 0.4),    # C not a multiple of 32
     (384, 4096, 512, 256, 256, 0.3),    # d 512, tile 256: 2 sub-blocks a tile
     (300, 2048, 512, 256, 8, 0.5),      # ragged, d 512, tile 256, smallest C
+    (256, 4096, 768, 1024, 64, 0.4),    # A streamed through the ring
+    (300, 8192, 1024, 4096, 256, 0.4),  # streamed, ragged, widest top-C
+    (256, 4096, 4096, 4096, 16, 0.3),   # streamed, 64 k blocks a sub-block
+    (256, 1024, 32768, 256, 8, 0.3),    # the widest hash_dim the config takes
 ])
 def test_p1_kernel_equals_plain(dev, m, n, d, tile, cand_c, thr):
     b = torch.from_numpy(_dyadic(n, d, seed=m)).to(torch.bfloat16).to(dev)
@@ -119,6 +125,9 @@ def _masked_cols(v, c):
     (384, [1024, 768, 512], 128, 256, 8, 0.5),       # unequal chunks
     (256, [8192, 4096], 512, 4096, 64, 0.4),         # main-path tile and width
     (300, [768, 256, 1280], 512, 256, 16, 0.4),      # ragged; chunks of 1-5 tiles
+    (256, [4096, 4096], 1024, 4096, 64, 0.4),        # A streamed
+    (300, [768, 256, 1280], 768, 256, 16, 0.4),      # streamed, ragged
+    (256, [2048, 2048], 4096, 1024, 8, 0.4),         # streamed, 64 k blocks
 ])
 def test_chain_kernel_equals_plain_and_one_pass(dev, m, chunks, d, tile,
                                                 cand_c, thr):
@@ -182,11 +191,56 @@ def _check_tri_segments(b, tile, cpg, bm, cand_c, thr):
     (4096, 512, 512, 2, 128, 8, 0.3),   # d 512, block_m 128, smallest C
     (2048, 128, 512, 1, 512, 256, 0.4),  # block_m = tile, C 256
     (3072, 384, 512, 2, 256, 8, 0.3),   # 3 segments, d 384, C 8
+    (4096, 1024, 512, 2, 512, 64, 0.3),  # A streamed
+    (2048, 768, 256, 1, 128, 16, 0.3),   # streamed, block_m < tile
+    (2048, 4096, 512, 1, 512, 8, 0.3),   # streamed, 64 k blocks
 ])
 def test_tri_kernel_equals_plain(dev, n, d, tile, cpg, bm, cand_c, thr):
     b = torch.from_numpy(_dyadic(n, d, seed=n + d)).to(torch.bfloat16).to(dev)
     meta = _check_tri_segments(b, tile, cpg, bm, cand_c, thr)
     assert float(meta[:, 0].sum()) > 0
+
+
+@pytest.mark.parametrize("d", [128, 512])
+def test_streamed_a_is_bitwise_resident(dev, d):
+    """At d <= 512 the scan keeps A resident; streamed through the ring
+    (``_build.force_stream_a``), with the k blocks in the same order, it
+    must give the same bits: every output of the three kernels, -inf slots
+    included."""
+    b = torch.from_numpy(_dyadic(4096, d, seed=d)).to(torch.bfloat16).to(dev)
+    a = b[:300].contiguous()
+    for stream in (False, True):
+        before = K.LAUNCHES["p1_fused_closed2"]
+        with _build.force_stream_a(stream):
+            K.p1_fused_closed2(a, b, 0.3, tile=256, cand_c=16)
+        assert K.LAUNCHES["p1_fused_closed2"] == before + 1
+    res = K.p1_fused_closed2(a, b, 0.3, tile=256, cand_c=16)
+    with _build.force_stream_a():
+        got = K.p1_fused_closed2(a, b, 0.3, tile=256, cand_c=16)
+    for name, g, r in zip(("ship", "counts", "tmax", "bound", "max_cnt"), got, res):
+        assert torch.equal(g, r), ("p1_fused_closed2", name)
+    assert int(res[2].max()) > 2
+    states = [K.p1_chain_init(300, 16, dev) for _ in range(2)]
+    for lo, hi in ((0, 1024), (1024, 4096)):
+        out = []
+        for st, s in zip(states, (False, True)):
+            with _build.force_stream_a(s):
+                out.append(K.p1_fused_chain(a, b[lo:hi], 0.3, lo, st, 256, 16))
+        for name, g, r in zip(("ship", "counts", "tmax", "bound", "max_cnt"),
+                              out[1][:5], out[0][:5]):
+            assert torch.equal(g, r), ("p1_fused_chain", lo, name)
+    for g, r in zip(*states):
+        assert torch.equal(g, r), "p1_fused_chain state"
+    fs = [K.tri_future_init(4096, dev) for _ in range(2)]
+    for s in range(2):
+        seg = b[s * 2048:(s + 1) * 2048]
+        out = []
+        for f, st in zip(fs, (False, True)):
+            with _build.force_stream_a(st):
+                out.append(K.p1_tri_fused(seg, b, f, s * 4, 0.3, 512, 16, 128))
+        for name, g, r in zip(("rv", "rc", "rmeta"), out[1][:3], out[0][:3]):
+            assert torch.equal(g, r), ("p1_tri_fused", s, name)
+    assert torch.equal(fs[0], fs[1]), "p1_tri_fused future state"
 
 
 def test_tri_kernel_ties_take_first_row(dev):
@@ -288,6 +342,11 @@ def test_new_kernels_raise_on_unsupported_cuda_shapes(dev):
         K.p1_closed2_variant(b[:256], b, 0.5, 256, 8, block_rows=32)
     with pytest.raises(TypeError):
         K.p1_mm_floor(b[:256].float(), b, 0.5)
+    wide = torch.zeros((1024, 1024), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError):  # the probes keep A resident: d <= 512
+        K.p1_closed2_variant(wide[:256], wide, 0.5, 256, 8)
+    with pytest.raises(ValueError):
+        K.p1_mm_floor(wide[:256], wide, 0.5)
 
 
 # 2: one hash bit; 4096: > 48 KB of histograms; 32768: one warp per block

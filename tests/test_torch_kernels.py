@@ -137,7 +137,9 @@ def test_p1_plain_truncation_bound():
 
 def test_p1_supported_shapes():
     assert K.p1_fused_supported(4096, 8192, 512, 4096, 64)
-    assert not K.p1_fused_supported(4096, 8192, 1024, 4096, 64)  # smem
+    assert K.p1_fused_supported(4096, 8192, 1024, 4096, 64)  # A streams
+    assert K.p1_fused_supported(256, 4096, 32768, 4096, 64)  # the widest hash
+    assert not K.p1_fused_supported(4096, 8192, 192, 4096, 64)  # lanes
     assert not K.p1_fused_supported(128, 8192, 512, 4096, 64)
     assert not K.p1_fused_supported(4096, 8192, 512, 4096, 512)
 

@@ -8,9 +8,13 @@
 * ``ops.matcher.LAST_STATS`` mirrors the stats of the last matcher fit
   (string_grouper_tpu/ops/matcher.py:82-87), and the engine reads it when
   a result carries no stats (string_grouper_tpu/engine.py:337-339).
+* ``StringGrouper.timings`` holds the JAX package's keys with the float
+  match stats rounded to 3 places, as JAX's engine rounds them, on every
+  fit tier; ``LAST_STATS`` keeps the matcher's unrounded values.
 """
 
 import os
+import re
 import sys
 import threading
 
@@ -153,4 +157,33 @@ def test_engine_reads_last_stats_when_pairs_carry_none(monkeypatch):
     got = {k[len("match."):]: v for k, v in sg.timings.seconds.items()
            if k.startswith("match.")}
     assert seen["stats"] is TM.LAST_STATS
-    assert got == TM.LAST_STATS
+    # timings keeps float stats to 3 places (as the JAX engine); LAST_STATS
+    # keeps them as the matcher made them
+    assert got == {k: round(v, 3) if isinstance(v, float) else v
+                   for k, v in TM.LAST_STATS.items()}
+
+
+#: ``timings`` keys only the port has: its escalation counters per rung
+#: and, on the replicated tier, each rank's matcher stats
+PORT_ONLY = re.compile(r"match\.(mh_local_\w+|esc_rows_r\d+_kt\d+)")
+
+
+@pytest.mark.parametrize("tier", [None, True, "sharded"])
+def test_timings_keys_and_rounding_as_jax(tier):
+    """The same fit in both packages: the JAX package's ``timings`` keys
+    (the port's adds only PORT_ONLY), and every float match stat rounded
+    to 3 places in both (string_grouper_tpu/engine.py:342-343, :421-422),
+    on the single-process path and on both multi-process tiers."""
+    names = pd.Series(random_names(300, seed=5))
+    kw = {} if tier is None else dict(multihost=tier)
+    t = sgt.StringGrouper(names, min_similarity=0.6, device="cpu", **kw).fit()
+    j = sgj.StringGrouper(names, min_similarity=0.6, **kw).fit()
+    t_sec, j_sec = t.timings.seconds, j.timings.seconds
+    assert set(j_sec) <= set(t_sec)
+    assert all(PORT_ONLY.fullmatch(k) for k in set(t_sec) - set(j_sec)), \
+        set(t_sec) - set(j_sec)
+    for secs in (t_sec, j_sec):
+        stats = {k: v for k, v in secs.items() if k.startswith("match.")}
+        assert any(isinstance(v, float) for v in stats.values())
+        for k, v in stats.items():
+            assert not isinstance(v, float) or round(v, 3) == v, (k, v)
