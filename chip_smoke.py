@@ -13,7 +13,8 @@ Phases (any failure raises and the script exits non-zero without a result):
    ``nvcc -Xptxas -v``'s registers, shared memory and spills for the five
    kernels on the TMA/wgmma scan (no stack, no spills and no serialized
    wgmma, and both instantiations of ``p1_fused_closed2``, A resident and
-   A streamed, at 168 registers, or the phase fails).
+   A streamed (sub-block pairs, B shared by a cluster of 2 row blocks), at
+   168 registers, or the phase fails).
 2. Kernel ``p1_fused_closed2`` against its plain PyTorch version on the
    card, on hash rows of the synthetic 663,000-name corpus (A 32,768 rows,
    B 131,072 rows, d 512, tile 4096, C 64, the default threshold): counts,
@@ -61,16 +62,20 @@ Phases (any failure raises and the script exits non-zero without a result):
    by phase 2's hash rule (bitwise repeatable, within 1 bf16 ulp of its
    plain version on the card and on the CPU); on that hash, both scan
    kernels at d = 640, 768 (the first d columns, renormalised) and 1024,
-   m = 256 and 300, C = 8 and 256, by phase 2's rule, the chained passes bitwise one closed pass; the same at d = 4096
+   m = 256 and 300, C = 8 and 256, by phase 2's rule, the chained passes
+   bitwise one closed pass; the same at d = 4096
    and 32768 (A 256 x B 4096, seeded rows around 32 centres); and
    ``p1_tri_fused`` at d = 1024 by phase 3e's rule.
-2x. At phase 2's shape: the streamed instantiation at d = 512 bitwise the
+2x. The streamed scan's launch plan at d = 1024 (shared memory, ring
+   depth, ``cudaOccupancyMaxActiveClusters``, which must be > 0).  At
+   phase 2's shape: the streamed instantiation at d = 512 bitwise the
    resident one; ``p1_fused_closed2`` at d = 1024 against its plain
    version (phase 2's rule); then, by CUDA events in turns, the resident
-   and streamed scans at d = 512 and the scan at d = 1024 beside its
-   operations bound (8.894 ms), ``torch.mm`` bf16 and the plain version;
-   ``p1_fused_chain`` (one pass) and ``p1_tri_fused`` (segment 0) at
-   d = 1024 the same way.
+   and streamed scans at d = 512 and the scan at d = 1024, beside the
+   operations bound (8.894 ms), the modeled TMA request bytes of each
+   design and the rate they imply, ``torch.mm`` bf16 and the plain
+   version; ``p1_fused_chain`` (one pass) and ``p1_tri_fused``
+   (segment 0) at d = 1024 the same way.
 3f. The packed-slot torch op ``_device_hash`` (not a hand kernel) on the
    663k corpus's ``pack_hash_inputs`` at its full ELL width: on the card
    bitwise equal to the same op on the CPU over the first 20,000 rows (the
@@ -788,16 +793,39 @@ def check_wide(K, h1024, thr, dev):
 
 
 # ----------------------------------------------------------------- phase 2x
+def streamed_tma_bytes(m, n, d):
+    """Modeled TMA request bytes of the streamed scan (stage bytes x stages
+    x blocks; no counter reads them): a stage is k block kb of a sub-block
+    pair, A's box (128 rows x 64 k, 16 KB) and B's two boxes, of which each
+    block of a cluster of 2 row blocks loads one and gets the other from
+    its peer (multicast): 32 KB a block and stage.  The grid is whole
+    clusters."""
+    blocks = -(-m // 256) * 2
+    stages = (n // 256) * (d // 64)
+    return blocks * stages * 32_768
+
+
+def resident_tma_bytes(m, n, d):
+    """Modeled TMA request bytes of the resident scan: A's 128 rows once a
+    block, then a 16 KB box of B per stage (k block of one 128-column
+    sub-block)."""
+    blocks = -(-m // 128)
+    return blocks * (128 * d * 2 + (n // 128) * (d // 64) * 16_384)
+
+
 def time_wide(K, h512, h1024, thr, m=32_768, n=131_072, seg_rows=32_768):
-    """Phase 2x: at phase 2's shape (A 32,768 x B 131,072, tile 4096, C 64),
-    the streamed instantiation at d = 512 bitwise the resident one; the
-    kernel at d = 1024 against its plain version (phase 2's rule); then,
-    with CUDA events, the resident and streamed scans at d = 512 and the
-    scan at d = 1024 in turns (r512, s512, w1024, w1024, s512, r512),
-    beside the operations bound, ``torch.mm`` bf16 on the same operands
-    and the plain version; and ``p1_fused_chain`` (one pass) and
-    ``p1_tri_fused`` (segment 0: A 32,768 x all 131,072 columns) at
-    d = 1024 the same way.  Returns the three kernels' d = 1024 rows."""
+    """Phase 2x: the streamed scan's launch plan at d = 1024 (shared
+    memory, ring depth, ``cudaOccupancyMaxActiveClusters``); at phase 2's
+    shape (A 32,768 x B 131,072, tile 4096, C 64), the streamed
+    instantiation at d = 512 bitwise the resident one; the kernel at
+    d = 1024 against its plain version (phase 2's rule); then, with CUDA
+    events, the resident and streamed scans at d = 512 and the scan at
+    d = 1024 in turns (r512 s512 w1024 w1024 s512 r512), beside the
+    operations bound, the modeled TMA request bytes of each design and
+    the rate they imply, ``torch.mm`` bf16 on the same operands and the
+    plain version; and ``p1_fused_chain`` (one pass) and ``p1_tri_fused``
+    (segment 0: A 32,768 x all 131,072 columns) at d = 1024 the same way.
+    Returns the three kernels' d = 1024 rows."""
     from string_grouper_tpu_torch.ops import _build
 
     tile, cand_c = 4096, 64
@@ -807,6 +835,12 @@ def time_wide(K, h512, h1024, thr, m=32_768, n=131_072, seg_rows=32_768):
     def closed(a, b, stream=False):
         with _build.force_stream_a(stream):
             return K.p1_fused_closed2(a, b, thr, tile, cand_c)
+
+    plans = {name: _build.scan_plan(name, 1024) for name in _build.STREAM_A_KERNELS}
+    log(f"streamed scan's launch plan at d=1024 (dynamic shared bytes, ring stages, "
+        f"kTri's column buffers, blocks of a cluster, cudaOccupancyMaxActiveClusters): "
+        f"{json.dumps(plans)}")
+    assert all(p["max_active_clusters"] > 0 for p in plans.values()), plans
 
     res, strm = closed(a5, b5), closed(a5, b5, True)
     torch.cuda.synchronize()
@@ -824,11 +858,19 @@ def time_wide(K, h512, h1024, thr, m=32_768, n=131_072, seg_rows=32_768):
     del got, want
     torch.cuda.empty_cache()
 
+    # r512 resident, s512 streamed, w1024 the streamed scan at its width
     runs = (("r512", a5, b5, False), ("s512", a5, b5, True), ("w1024", a1, b1, False))
     times = {k: [] for k, *_ in runs}
-    for k, a, b, st in (runs[0], runs[1], runs[2], runs[2], runs[1], runs[0]):
+    for k, a, b, st in runs + runs[::-1]:
         times[k].append(cuda_ms(lambda: closed(a, b, st), 5))
     ms = {k: sum(v) / len(v) for k, v in times.items()}
+    tma = {"r512": resident_tma_bytes(m, n, 512), "s512": streamed_tma_bytes(m, n, 512),
+           "w1024": streamed_tma_bytes(m, n, 1024)}
+    log("modeled TMA request bytes of the scan's blocks (stage bytes x stages x "
+        "blocks; resident: A once, B's box per stage; no counter reads them) and the "
+        "rate they imply over the measured times: " + json.dumps(
+            {k: dict(bytes=v, ms=ms[k], tb_per_s=v / (ms[k] * 1e-3) / 1e12)
+             for k, v in tma.items()}))
     lib_ms = cuda_ms(lambda: torch.mm(a1, b1.t()), 3)
     plain_ms = cuda_ms(lambda: K.p1_fused_closed2_plain(a1, b1, thr, tile, cand_c), 1,
                        warmup=False)
@@ -839,9 +881,9 @@ def time_wide(K, h512, h1024, thr, m=32_768, n=131_072, seg_rows=32_768):
         f"r512 s512 w1024 w1024 s512 r512): {json.dumps(times)} ms; mean w1024 "
         f"{ms['w1024']} ms = {bound_ms / ms['w1024']} of its bound {bound_ms} ms "
         f"(operations), torch.mm bf16 {lib_ms} ms (kernel / torch.mm "
-        f"{ms['w1024'] / lib_ms}), plain {plain_ms} ms; resident d=512 {ms['r512']} ms, "
-        f"streamed d=512 {ms['s512']} ms ({flops / (ms['w1024'] * 1e-3) / 1e12} TFLOP/s "
-        f"at d=1024)")
+        f"{ms['w1024'] / lib_ms}), plain {plain_ms} ms; resident "
+        f"d=512 {ms['r512']} ms, streamed d=512 {ms['s512']} ms "
+        f"({flops / (ms['w1024'] * 1e-3) / 1e12} TFLOP/s at d=1024)")
     rows = {"p1_fused_closed2": dict(
         ms=ms["w1024"], plain_ms=plain_ms, bound_ms=bound_ms, library_ms=lib_ms,
         resident_d512_ms=ms["r512"], streamed_d512_ms=ms["s512"])}

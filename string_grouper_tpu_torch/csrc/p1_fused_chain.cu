@@ -46,3 +46,6 @@ extern "C" int p1_fused_chain(const void* a, const void* b, float thr,
   p.bound = static_cast<float*>(bound);
   return p1h::launch_scan<p1h::kChain>(p, stream);
 }
+
+// p1h_plan: the plan of this library's launch at width d (p1h::plan_info).
+P1H_EXPORT_PLAN(p1h::kChain)

@@ -34,3 +34,6 @@ extern "C" int p1_fused_closed2(const void* a, const void* b, float thr,
   p.bound = static_cast<float*>(bound);
   return p1h::launch_scan<p1h::kClosed>(p, stream);
 }
+
+// p1h_plan: the plan of this library's launch at width d (p1h::plan_info).
+P1H_EXPORT_PLAN(p1h::kClosed)

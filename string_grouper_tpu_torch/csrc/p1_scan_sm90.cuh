@@ -117,22 +117,52 @@
 // * Streamed A (STREAM_A, kClosed / kChain / kTri at 128 rows): A's 128
 //   resident rows take d * 256 bytes, 256 KB at d = 1024, more than a
 //   block has.  Past d = RESIDENT_MAX_D (512: 128 KB of A beside a 6-stage
-//   ring; 640 would leave 4 stages, 768 two) every ring stage carries A's
-//   box (128 rows x 64 k) of its k block beside B's, 32 KB, one full
-//   barrier expecting both; nothing of A stays resident.  The k blocks
-//   still run in ascending order within a sub-block, so a streamed scan
-//   gives the resident scan's bits (p1h_force_stream_a checks that at
-//   d <= 512).  Every block now reads A from L2 once per sub-block as
-//   well: 64 operations per byte loaded instead of 128, so the scan is
-//   bound by L2 reads there (on the H100: 6.1-7.4 TB/s, 39% of the
-//   tensor-core bound at d = 1024).
+//   ring; 640 would leave 4 stages, 768 two) A streams through the ring,
+//   and nothing of it stays resident.  Carried beside one B box per
+//   stage, A would be read from L2 once per 128 columns: 32 KB per 1 M
+//   multiply-adds, twice the resident scan's 16 KB, and the scan bound by
+//   L2 reads.  Two things bring it back to 16 KB:
+//   - Sub-block pairs.  A stage holds k block kb of A's box and of B's
+//     boxes for sub-blocks sb and sb + 1, 48 KB (4 stages fit).  Each
+//     consumer warpgroup issues one m64n256k16 chain per stage from the
+//     one A descriptor: its first 64 accumulator registers are sub-block
+//     sb's (acc0), the last 64 sb + 1's (acc1), laid out as two
+//     m64n128k16 would lay them.  After the pair's last k block it runs
+//     epilogue(sb), then epilogue(sb + 1): within each accumulator the k
+//     blocks run in ascending order, so every sum is the resident scan's
+//     f32 bits and the rank inserts come in the same order
+//     (p1h_force_stream_a checks that at d <= 512).  This gives up the
+//     overlap of one sub-block's epilogue with the next one's product:
+//     both accumulators are busy on the pair.
+//   - A cluster of 2 row-neighbour blocks (cluster_of).  Blocks 2c and 2c + 1
+//     walk the same columns in the same order.  Each producer loads its
+//     own A box and one of the stage's two B boxes with
+//     .multicast::cluster into both blocks: rank 0 sub-block sb's, rank 1
+//     sb + 1's.  Each full barrier expects the stage's 48 KB; each empty
+//     barrier counts the consumer warps of both blocks (16 arrivals, 8 of
+//     them remote), so no producer refills a stage that its peer still
+//     reads.  L2 reads: 32 KB per 2 M multiply-adds.
+//   Where trouble lies, and what the code does about it:
+//   - Ragged m and odd block counts: the grid is rounded up to whole
+//     clusters; a block whose rows all lie past m still walks every stage
+//     (waits, issues its wgmma, releases, loads its multicast half) but
+//     loads no A box and runs no epilogue; every output keeps its
+//     row < m guard.  A peer that hangs traps in mbar_wait.
+//   - Co-scheduling: a cluster that cannot be placed is a launch error,
+//     returned as such; nothing falls back to another stage layout.
+//     plan_info (each library's p1h_plan) reports
+//     cudaOccupancyMaxActiveClusters.
+//   - Barrier init: fence.mbarrier_init.release.cluster, then a cluster
+//     barrier before the first multicast; another before exit, so that no
+//     block leaves while its peer can still arrive on its barriers.
+//   - kTri's column buffers: see epilogue (the rule differs from the
+//     resident scan's).  The statistics stay per block (blockIdx.x is the
+//     row block under a cluster too).
 //
 // Left for later: wave quantization (one block of 128 rows per SM: 576
 // blocks on 132 SMs at the 663k segment, 4.36 waves); thread-block
-// clusters with TMA multicast of B to two SMs, which halves B's L2 traffic
-// -- the next lever if the scan is bound by L2 reads rather than the
-// tensor cores; for streamed A, the same with two column-neighbour blocks
-// sharing A's boxes.
+// clusters with TMA multicast of B for the resident scan (d <= 512),
+// which is not bound by B's L2 reads (the 64-row probe of the variant).
 
 #pragma once
 
@@ -238,6 +268,38 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       : "memory");
 }
 
+// ---- clusters (the streamed scan) ------------------------------------------
+// The same box into the same shared offset of every block in `mask`, each
+// block's barrier at `bar` counting its bytes.
+__device__ __forceinline__ void tma_load_multicast(uint32_t dst, const CUtensorMap* map,
+                                                   int k, int row, uint32_t bar,
+                                                   uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1, {%2, %3}], [%4], %5;\n"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(k), "r"(row), "r"(bar),
+        "h"(mask)
+      : "memory");
+}
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+// Arrive on the barrier at shared offset `bar` of the cluster's block `cta`.
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar, uint32_t cta) {
+  asm volatile(
+      "{\n"
+      ".reg .b32 ra;\n"
+      "mapa.shared::cluster.u32 ra, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [ra];\n"
+      "}\n" ::"r"(bar), "r"(cta) : "memory");
+}
+// Every thread of the cluster's blocks (not .aligned: callers may diverge).
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive;\nbarrier.cluster.wait;\n" ::: "memory");
+}
+
 // wgmma shared-memory descriptor: K-major, 128-byte swizzle, 8-row groups
 // 1024 bytes apart (SBO 64 x 16 B); LBO is unused for this layout.
 __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
@@ -284,6 +346,46 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
         "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// (d0 | d1) (64 x 256 f32: d0 columns 0-127, d1 128-255, each in the
+// m64n128k16 layout) (+)= A_tile (64 x 16) . B_tile^T, B's 256 rows two
+// boxes of 128 back to back.
+__device__ __forceinline__ void wgmma_m64n256k16(float (&d0)[64], float (&d1)[64],
+                                                 uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "%128, %129, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d0[0]), "+f"(d0[1]), "+f"(d0[2]), "+f"(d0[3]), "+f"(d0[4]), "+f"(d0[5]), "+f"(d0[6]), "+f"(d0[7]),
+        "+f"(d0[8]), "+f"(d0[9]), "+f"(d0[10]), "+f"(d0[11]), "+f"(d0[12]), "+f"(d0[13]), "+f"(d0[14]), "+f"(d0[15]),
+        "+f"(d0[16]), "+f"(d0[17]), "+f"(d0[18]), "+f"(d0[19]), "+f"(d0[20]), "+f"(d0[21]), "+f"(d0[22]), "+f"(d0[23]),
+        "+f"(d0[24]), "+f"(d0[25]), "+f"(d0[26]), "+f"(d0[27]), "+f"(d0[28]), "+f"(d0[29]), "+f"(d0[30]), "+f"(d0[31]),
+        "+f"(d0[32]), "+f"(d0[33]), "+f"(d0[34]), "+f"(d0[35]), "+f"(d0[36]), "+f"(d0[37]), "+f"(d0[38]), "+f"(d0[39]),
+        "+f"(d0[40]), "+f"(d0[41]), "+f"(d0[42]), "+f"(d0[43]), "+f"(d0[44]), "+f"(d0[45]), "+f"(d0[46]), "+f"(d0[47]),
+        "+f"(d0[48]), "+f"(d0[49]), "+f"(d0[50]), "+f"(d0[51]), "+f"(d0[52]), "+f"(d0[53]), "+f"(d0[54]), "+f"(d0[55]),
+        "+f"(d0[56]), "+f"(d0[57]), "+f"(d0[58]), "+f"(d0[59]), "+f"(d0[60]), "+f"(d0[61]), "+f"(d0[62]), "+f"(d0[63]),
+        "+f"(d1[0]), "+f"(d1[1]), "+f"(d1[2]), "+f"(d1[3]), "+f"(d1[4]), "+f"(d1[5]), "+f"(d1[6]), "+f"(d1[7]),
+        "+f"(d1[8]), "+f"(d1[9]), "+f"(d1[10]), "+f"(d1[11]), "+f"(d1[12]), "+f"(d1[13]), "+f"(d1[14]), "+f"(d1[15]),
+        "+f"(d1[16]), "+f"(d1[17]), "+f"(d1[18]), "+f"(d1[19]), "+f"(d1[20]), "+f"(d1[21]), "+f"(d1[22]), "+f"(d1[23]),
+        "+f"(d1[24]), "+f"(d1[25]), "+f"(d1[26]), "+f"(d1[27]), "+f"(d1[28]), "+f"(d1[29]), "+f"(d1[30]), "+f"(d1[31]),
+        "+f"(d1[32]), "+f"(d1[33]), "+f"(d1[34]), "+f"(d1[35]), "+f"(d1[36]), "+f"(d1[37]), "+f"(d1[38]), "+f"(d1[39]),
+        "+f"(d1[40]), "+f"(d1[41]), "+f"(d1[42]), "+f"(d1[43]), "+f"(d1[44]), "+f"(d1[45]), "+f"(d1[46]), "+f"(d1[47]),
+        "+f"(d1[48]), "+f"(d1[49]), "+f"(d1[50]), "+f"(d1[51]), "+f"(d1[52]), "+f"(d1[53]), "+f"(d1[54]), "+f"(d1[55]),
+        "+f"(d1[56]), "+f"(d1[57]), "+f"(d1[58]), "+f"(d1[59]), "+f"(d1[60]), "+f"(d1[61]), "+f"(d1[62]), "+f"(d1[63])
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
@@ -590,8 +692,15 @@ __device__ __forceinline__ void close_tile(Rows& r, const Args& p, int row_lo,
 // it, so no warp waits for another.  A warp cannot reach the buffer's next
 // sub-block before that flush: it would need a ring stage that the
 // producer loads only after every warp has released a stage issued after
-// its epilogue of sb, and launch gives col_bufs * (d / 64) > stages (a
-// stage holds one k block, resident A or streamed).
+// its epilogue of sb.  Resident A (a stage holds one k block of one
+// sub-block): launch gives col_bufs * nkb > stages.  Streamed A (a stage
+// holds one k block of a pair; a warp in the epilogues of pair P has
+// released every stage up to P's last, nkb (P + 1) - 1, and no later
+// one): a warp can finish the stages of pair P' while a slow one is in
+// pair P only if (P' - P) nkb <= stages, and sub-blocks sb and
+// sb + col_bufs lie at least floor(col_bufs / 2) pairs apart, so launch
+// gives floor(col_bufs / 2) * nkb > stages.  Under a cluster each
+// producer also waits for the peer's warps: that only holds it back.
 template <int MODE, int TIE>
 __device__ __forceinline__ void epilogue(Rows& r, const float (&acc)[64],
                                          const Args& p, int sb, int row_lo,
@@ -652,23 +761,23 @@ struct Ring {
   }
 };
 
-// Bytes of one ring stage: B's box, and with STREAM_A A's box before it.
+// Bytes of one ring stage: B's box; with STREAM_A A's box, then B's boxes
+// of a sub-block pair.
 __host__ __device__ constexpr int stage_bytes(bool stream_a) {
-  return stream_a ? 2 * BOX : BOX;
+  return stream_a ? 3 * BOX : BOX;
 }
 
 // Issue the 4 wgmmas of ring stage `ring.st` (k block kb) into acc, as one
 // commit group; then wait for the previous group and release its stage.
-// Resident A: `a_wg` is the warpgroup's rows of k block 0, k blocks lie
-// ROWS x 128 bytes apart.  STREAM_A: `a_wg` is the warpgroup's offset in
-// the stage's A box.
-template <int ROWS, bool STREAM_A>
+// `a_wg` is the warpgroup's rows of k block 0 in resident A, k blocks lie
+// ROWS x 128 bytes apart.
+template <int ROWS>
 __device__ __forceinline__ void mma_stage(float (&acc)[64], Ring& ring,
                                           uint32_t a_wg, int kb, int lane) {
   mbar_wait(ring.full(ring.st), ring.ph);
-  const uint32_t stage = ring.b0 + ring.st * stage_bytes(STREAM_A);
-  const uint32_t a = STREAM_A ? stage + a_wg : a_wg + kb * (ROWS * BK * 2);
-  const uint32_t b = STREAM_A ? stage + BOX : stage;
+  const uint32_t stage = ring.b0 + ring.st * stage_bytes(false);
+  const uint32_t a = a_wg + kb * (ROWS * BK * 2);
+  const uint32_t b = stage;
   fence_regs(acc);
   wgmma_fence();
 #pragma unroll
@@ -682,9 +791,46 @@ __device__ __forceinline__ void mma_stage(float (&acc)[64], Ring& ring,
   ring.advance();
 }
 
+// Streamed A: release stage s in both blocks of the cluster (the same
+// offset; each producer's empty barrier counts both blocks' warps).
+__device__ __forceinline__ void release(const Ring& ring, int s, int lane) {
+  if (lane != 0) return;
+  mbar_arrive_cluster(ring.empty(s), 0);
+  mbar_arrive_cluster(ring.empty(s), 1);
+}
+
+// Streamed A: the 4 m64n256k16 of ring stage `ring.st` (k block kb of a
+// sub-block pair) into (acc0 | acc1), as one commit group; then wait for
+// the previous group and release its stage.  `a_wg` is the warpgroup's
+// offset in the stage's A box; B's two boxes follow A's.
+__device__ __forceinline__ void mma_pair(float (&acc0)[64], float (&acc1)[64],
+                                         Ring& ring, uint32_t a_wg, int kb, int lane) {
+  mbar_wait(ring.full(ring.st), ring.ph);
+  const uint32_t stage = ring.b0 + ring.st * stage_bytes(true);
+  const uint32_t a = stage + a_wg;
+  const uint32_t b = stage + BOX;
+  fence_regs(acc0);
+  fence_regs(acc1);
+  wgmma_fence();
+#pragma unroll
+  for (int k = 0; k < BK / 16; ++k)
+    wgmma_m64n256k16(acc0, acc1, sw128_desc(a + 32 * k), sw128_desc(b + 32 * k),
+                     (kb | k) != 0);
+  wgmma_commit();
+  fence_regs(acc0);
+  fence_regs(acc1);
+  wgmma_wait<1>();
+  if (ring.prev >= 0) release(ring, ring.prev, lane);
+  ring.advance();
+}
+
 // Threads of a block of ROWS left rows: a consumer warpgroup per 64 rows,
 // then the producer warpgroup.
 __host__ __device__ constexpr int threads(int rows) { return 2 * rows + 128; }
+
+// Blocks of a cluster: 2 row blocks when A streams (the pair's B boxes
+// multicast to both), else 1.
+__host__ __device__ constexpr int cluster_of(bool stream_a) { return stream_a ? 2 : 1; }
 
 template <int MODE, int ROWS = BM, int TIE = kFirst, bool STREAM_A = false>
 __global__ void __launch_bounds__(threads(ROWS), 1)
@@ -695,6 +841,7 @@ __global__ void __launch_bounds__(threads(ROWS), 1)
                 "the switches are kClosed's");
   static_assert(!STREAM_A || (ROWS == BM && TIE == kFirst && MODE != kCount),
                 "A streams in kClosed, kChain and kTri at 128 rows");
+  constexpr int CL = cluster_of(STREAM_A);
   constexpr int CWG = ROWS / 64;     // consumer warpgroups
   constexpr int NTR = threads(ROWS);
   constexpr int STAGE = stage_bytes(STREAM_A);
@@ -721,12 +868,15 @@ __global__ void __launch_bounds__(threads(ROWS), 1)
   if (tid == 0) {
     for (int s = 0; s < S; ++s) {
       mbar_init(bars + 8 * s, 1);            // producer's expect_tx
-      mbar_init(bars + 8 * (S + s), 4 * CWG);  // one arrival per consumer warp
+      mbar_init(bars + 8 * (S + s), 4 * CWG * CL);  // one per consumer warp
     }
     mbar_init(a_full, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  __syncthreads();
+  if constexpr (CL == 2)
+    cluster_sync();  // the peer's barriers exist before its first multicast
+  else
+    __syncthreads();
 
   // The role, broadcast from lane 0 so that the compiler sees it is
   // warp-uniform (wgmma in a possibly divergent path is serialized).
@@ -740,16 +890,24 @@ __global__ void __launch_bounds__(threads(ROWS), 1)
         for (int kb = 0; kb < nkb; ++kb)
           tma_load(a_s + kb * (ROWS * BK * 2), &tm_a, kb * BK, row0, a_full);
       }
+      // Streamed A: per sub-block pair and k block, A's box (none in a
+      // block with no rows), then B's boxes of sb and sb + 1: this block's
+      // cluster rank loads sub-block sb + rank's box into both blocks.
+      const uint32_t rank = STREAM_A ? cluster_rank() : 0;
+      const bool a_box = STREAM_A && row0 < p.m;
       int st = 0;
       uint32_t ph = 0;
-      for (int sb = 0; sb < n_sub; ++sb) {
+      for (int sb = 0; sb < n_sub; sb += STREAM_A ? 2 : 1) {
         for (int kb = 0; kb < nkb; ++kb) {
           mbar_wait(bars + 8 * (S + st), ph ^ 1);
-          mbar_expect_tx(bars + 8 * st, STAGE);
+          mbar_expect_tx(bars + 8 * st, STREAM_A && !a_box ? STAGE - BOX : STAGE);
           const uint32_t dst = b_s + st * STAGE;
-          if (STREAM_A) tma_load(dst, &tm_a, kb * BK, row0, bars + 8 * st);
-          tma_load(STREAM_A ? dst + BOX : dst, &tm_b, kb * BK, sb * BN,
-                   bars + 8 * st);
+          if (a_box) tma_load(dst, &tm_a, kb * BK, row0, bars + 8 * st);
+          if (STREAM_A)
+            tma_load_multicast(dst + (1 + rank) * BOX, &tm_b, kb * BK,
+                               (sb + rank) * BN, bars + 8 * st, 0x3);
+          else
+            tma_load(dst, &tm_b, kb * BK, sb * BN, bars + 8 * st);
           if (++st == S) {
             st = 0;
             ph ^= 1;
@@ -800,26 +958,46 @@ __global__ void __launch_bounds__(threads(ROWS), 1)
     float acc0[64], acc1[64];
     if (!STREAM_A) mbar_wait(a_full, 0);
 
-    // sub-block 0 into acc0; then per pair of sub-blocks: issue the next
-    // sub-block's first stage, finish and consume the current one, issue
-    // the rest (n_sub is even: n is a multiple of tile, tile of 256).
-    constexpr bool SA = STREAM_A;
-    for (int kb = 0; kb < nkb; ++kb) mma_stage<ROWS, SA>(acc0, ring, a_wg, kb, lane);
-    for (int sb = 0;; sb += 2) {
-      mma_stage<ROWS, SA>(acc1, ring, a_wg, 0, lane);  // sub-block sb is complete
-      fence_regs(acc0);
-      epilogue<MODE, TIE>(r, acc0, p, sb, row_lo, rloc, lane, cst);
-      for (int kb = 1; kb < nkb; ++kb) mma_stage<ROWS, SA>(acc1, ring, a_wg, kb, lane);
-      if (sb + 2 == n_sub) break;
-      mma_stage<ROWS, SA>(acc0, ring, a_wg, 0, lane);  // sub-block sb + 1 is complete
+    // (if constexpr: the resident build compiles without the streamed branch)
+    if constexpr (STREAM_A) {
+      // per pair of sub-blocks (n_sub is even: n is a multiple of tile, a
+      // tile of 256): its k blocks into (acc0 | acc1), then both
+      // epilogues in column order.  A block with no rows (the grid is
+      // whole clusters) walks the ring all the same.
+      const bool has_rows = row0 < p.m;
+      for (int sb = 0; sb < n_sub; sb += 2) {
+        for (int kb = 0; kb < nkb; ++kb) mma_pair(acc0, acc1, ring, a_wg, kb, lane);
+        wgmma_wait<0>();
+        release(ring, ring.prev, lane);
+        ring.prev = -1;
+        fence_regs(acc0);
+        fence_regs(acc1);
+        if (has_rows) {
+          epilogue<MODE, TIE>(r, acc0, p, sb, row_lo, rloc, lane, cst);
+          epilogue<MODE, TIE>(r, acc1, p, sb + 1, row_lo, rloc, lane, cst);
+        }
+      }
+    } else {
+      // sub-block 0 into acc0; then per pair of sub-blocks: issue the next
+      // sub-block's first stage, finish and consume the current one, issue
+      // the rest (n_sub is even: n is a multiple of tile, tile of 256).
+      for (int kb = 0; kb < nkb; ++kb) mma_stage<ROWS>(acc0, ring, a_wg, kb, lane);
+      for (int sb = 0;; sb += 2) {
+        mma_stage<ROWS>(acc1, ring, a_wg, 0, lane);  // sub-block sb is complete
+        fence_regs(acc0);
+        epilogue<MODE, TIE>(r, acc0, p, sb, row_lo, rloc, lane, cst);
+        for (int kb = 1; kb < nkb; ++kb) mma_stage<ROWS>(acc1, ring, a_wg, kb, lane);
+        if (sb + 2 == n_sub) break;
+        mma_stage<ROWS>(acc0, ring, a_wg, 0, lane);  // sub-block sb + 1 is complete
+        fence_regs(acc1);
+        epilogue<MODE, TIE>(r, acc1, p, sb + 1, row_lo, rloc, lane, cst);
+        for (int kb = 1; kb < nkb; ++kb) mma_stage<ROWS>(acc0, ring, a_wg, kb, lane);
+      }
+      wgmma_wait<0>();
+      if (lane == 0) mbar_arrive(ring.empty(ring.prev));
       fence_regs(acc1);
-      epilogue<MODE, TIE>(r, acc1, p, sb + 1, row_lo, rloc, lane, cst);
-      for (int kb = 1; kb < nkb; ++kb) mma_stage<ROWS, SA>(acc0, ring, a_wg, kb, lane);
+      epilogue<MODE, TIE>(r, acc1, p, n_sub - 1, row_lo, rloc, lane, cst);
     }
-    wgmma_wait<0>();
-    if (lane == 0) mbar_arrive(ring.empty(ring.prev));
-    fence_regs(acc1);
-    epilogue<MODE, TIE>(r, acc1, p, n_sub - 1, row_lo, rloc, lane, cst);
 
     if (MODE == kCount) {  // the per-thread counts, summed across the quad
 #pragma unroll
@@ -871,6 +1049,7 @@ __global__ void __launch_bounds__(threads(ROWS), 1)
       }
     }
   }
+  if constexpr (CL == 2) cluster_sync();  // the peer's last remote arrives are in
 }
 
 // ---- host side ----------------------------------------------------------------
@@ -915,53 +1094,124 @@ inline int make_map(CUtensorMap* map, const void* ptr, int64_t rows, int64_t d,
   return r == CUDA_SUCCESS ? 0 : kEncodeError + static_cast<int>(r);
 }
 
-// Launch one block per ROWS rows on `stream`; returns the cudaError_t (or
-// kEncodeError + CUresult when a TMA descriptor cannot be built).  A ring
-// needs 2 stages (a consumer waits for the next stage before it releases
-// the last); a width whose resident A leaves fewer is refused.
+// The ring and shared memory of a launch at width d: stages, kTri's
+// column buffers, dynamic shared bytes.  A ring needs 2 stages (a consumer
+// waits for the next stage before it releases the last); a width whose
+// resident A leaves fewer gets stages < 2.
+struct Plan {
+  int stages, col_bufs;
+  size_t smem;
+};
+template <int MODE, int ROWS, bool STREAM_A>
+inline Plan plan(int d) {
+  constexpr int STAGE = stage_bytes(STREAM_A);
+  const int nkb = d / BK;
+  const int a_bytes = STREAM_A ? 0 : nkb * ROWS * BK * 2;
+  const int room = SMEM_LIMIT - 1024 - 256 - a_bytes;  // alignment, barriers
+  Plan q{room / STAGE < MAX_STAGES ? room / STAGE : MAX_STAGES, 0, 0};
+  if (MODE == kTri) {
+    // as deep a ring as fits beside enough column buffers (see epilogue):
+    // resident col_bufs * nkb > stages, streamed (col_bufs / 2) * nkb > stages
+    for (; q.stages >= 2; --q.stages) {
+      q.col_bufs = STREAM_A ? 2 * (q.stages / nkb + 1) : q.stages / nkb + 1;
+      if (q.stages * STAGE + col_bytes(q.col_bufs) <= room) break;
+    }
+  }
+  q.smem = 1024 + a_bytes + static_cast<size_t>(q.stages) * STAGE + 256 +
+           col_bytes(q.col_bufs);
+  return q;
+}
+
+// The launch of scan_kernel<MODE, ROWS, TIE, STREAM_A> at p.d and p.m: its
+// plan into q, the kernel's dynamic shared memory set, and cfg over one
+// block per ROWS rows on `stream`, rounded up to whole clusters (the
+// cluster dimension in attr).  Returns a cudaError_t; a width whose ring
+// would have fewer than 2 stages is refused.
+template <int MODE, int ROWS, int TIE, bool STREAM_A>
+inline int configure(const Args& p, void* stream, Plan& q, cudaLaunchConfig_t& cfg,
+                     cudaLaunchAttribute& attr) {
+  constexpr int CL = cluster_of(STREAM_A);
+  q = plan<MODE, ROWS, STREAM_A>(p.d);
+  if (q.stages < 2) return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = scan_kernel<MODE, ROWS, TIE, STREAM_A>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(q.smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const unsigned rows_blocks = static_cast<unsigned>((p.m + ROWS - 1) / ROWS);
+  cfg = cudaLaunchConfig_t{};
+  cfg.gridDim = dim3((rows_blocks + CL - 1) / CL * CL);
+  cfg.blockDim = dim3(threads(ROWS));
+  cfg.dynamicSmemBytes = q.smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = CL;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return 0;
+}
+
+// Launch scan_kernel<MODE, ROWS, TIE, STREAM_A> on p (see configure);
+// returns the cudaError_t (or kEncodeError + CUresult when a TMA
+// descriptor cannot be built).
 template <int MODE, int ROWS = BM, int TIE = kFirst, bool STREAM_A = false>
 inline int launch(Args p, void* stream) {
-  constexpr int STAGE = stage_bytes(STREAM_A);
+  Plan q;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  const int c = configure<MODE, ROWS, TIE, STREAM_A>(p, stream, q, cfg, attr);
+  if (c != 0) return c;
+  p.stages = q.stages;
+  p.col_bufs = q.col_bufs;
   CUtensorMap tm_a, tm_b;
   int e = make_map(&tm_a, p.A, p.m, p.d, ROWS);
   if (e == 0) e = make_map(&tm_b, p.B, p.n, p.d);
   if (e != 0) return e;
-  const int nkb = p.d / BK;
-  const int a_bytes = STREAM_A ? 0 : nkb * ROWS * BK * 2;
-  const int room = SMEM_LIMIT - 1024 - 256 - a_bytes;  // alignment, barriers
-  p.stages = room / STAGE < MAX_STAGES ? room / STAGE : MAX_STAGES;
-  p.col_bufs = 0;
-  if (MODE == kTri) {
-    // col_bufs * nkb > stages (see epilogue), with as deep a ring as fits
-    for (; p.stages >= 2; --p.stages) {
-      p.col_bufs = p.stages / nkb + 1;
-      if (p.stages * STAGE + col_bytes(p.col_bufs) <= room) break;
-    }
-  }
-  if (p.stages < 2) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = 1024 + a_bytes + static_cast<size_t>(p.stages) * STAGE +
-                      256 + col_bytes(p.col_bufs);
-  cudaError_t err = cudaFuncSetAttribute(
-      scan_kernel<MODE, ROWS, TIE, STREAM_A>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const unsigned blocks = static_cast<unsigned>((p.m + ROWS - 1) / ROWS);
-  scan_kernel<MODE, ROWS, TIE, STREAM_A>
-      <<<blocks, threads(ROWS), smem, static_cast<cudaStream_t>(stream)>>>(tm_a, tm_b, p);
-  return static_cast<int>(cudaGetLastError());
+  auto kernel = scan_kernel<MODE, ROWS, TIE, STREAM_A>;
+  const cudaError_t launched = cudaLaunchKernelEx(&cfg, kernel, tm_a, tm_b, p);
+  const cudaError_t last = cudaGetLastError();  // clears what the launch set
+  return static_cast<int>(launched != cudaSuccess ? launched : last);
 }
 
 // Tests only: stream A at every width (set through p1h_force_stream_a).
 inline bool force_stream_a = false;
 
-// kClosed, kChain and kTri at any width: A resident up to
-// RESIDENT_MAX_D, streamed through the ring past it, or whenever
+// Whether the scan streams A at width d: past RESIDENT_MAX_D, or whenever
 // force_stream_a is set (the check that the two give the same bits).
+inline bool streams_a(int d) { return force_stream_a || d > RESIDENT_MAX_D; }
+
+// kClosed, kChain and kTri at any width: A resident or streamed (streams_a).
 template <int MODE>
 inline int launch_scan(const Args& p, void* stream) {
-  return force_stream_a || p.d > RESIDENT_MAX_D
-             ? launch<MODE, BM, kFirst, true>(p, stream)
-             : launch<MODE>(p, stream);
+  return streams_a(p.d) ? launch<MODE, BM, kFirst, true>(p, stream)
+                        : launch<MODE>(p, stream);
+}
+
+// The plan of the launch launch_scan<MODE> makes at width d, launching
+// nothing: [dynamic shared bytes, ring stages, kTri's column buffers,
+// blocks of a cluster, cudaOccupancyMaxActiveClusters] into out.  Returns
+// a cudaError_t.
+template <int MODE, bool STREAM_A>
+inline int plan_of(int d, int* out) {
+  Args p{};
+  p.m = 1;
+  p.d = d;
+  Plan q;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  const int c = configure<MODE, BM, kFirst, STREAM_A>(p, nullptr, q, cfg, attr);
+  if (c != 0) return c;
+  out[0] = static_cast<int>(q.smem);
+  out[1] = q.stages;
+  out[2] = q.col_bufs;
+  out[3] = cluster_of(STREAM_A);
+  auto kernel = scan_kernel<MODE, BM, kFirst, STREAM_A>;
+  return static_cast<int>(cudaOccupancyMaxActiveClusters(&out[4], kernel, &cfg));
+}
+template <int MODE>
+inline int plan_info(int d, int* out) {
+  return streams_a(d) ? plan_of<MODE, true>(d, out) : plan_of<MODE, false>(d, out);
 }
 
 }  // namespace p1h
@@ -969,3 +1219,9 @@ inline int launch_scan(const Args& p, void* stream) {
 // The test switch of every library built on this scan: nonzero streams A
 // through the ring where it would fit resident too.
 extern "C" void p1h_force_stream_a(int on) { p1h::force_stream_a = on != 0; }
+
+// A library's p1h_plan(d, out): p1h::plan_info of the scan it launches.
+#define P1H_EXPORT_PLAN(MODE)                                              \
+  extern "C" int p1h_plan(int64_t d, void* out) {                          \
+    return p1h::plan_info<MODE>(static_cast<int>(d), static_cast<int*>(out)); \
+  }

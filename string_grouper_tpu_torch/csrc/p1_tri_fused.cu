@@ -175,3 +175,6 @@ extern "C" int p1_tri_fused(const void* a, const void* b, float thr,
       col0, col0 + cpg * tile, static_cast<float*>(fpack));
   return static_cast<int>(cudaGetLastError());
 }
+
+// p1h_plan: the plan of this library's launch at width d (p1h::plan_info).
+P1H_EXPORT_PLAN(p1h::kTri)

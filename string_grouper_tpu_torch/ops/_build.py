@@ -186,6 +186,20 @@ def force_stream_a(on: bool = True):
             lib.p1h_force_stream_a(0)
 
 
+def scan_plan(name: str, d: int) -> Dict[str, int]:
+    """The launch plan of ``name``'s scan (one of ``STREAM_A_KERNELS``) at
+    width ``d`` under the current ``force_stream_a`` switch, launching
+    nothing: dynamic shared bytes, ring stages, kTri's column buffers,
+    blocks of a cluster, and ``cudaOccupancyMaxActiveClusters``."""
+    fn = load(name).p1h_plan
+    fn.argtypes = [_i, _p]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 5)()
+    check(name, fn(d, ctypes.addressof(out)))
+    keys = ("smem_bytes", "stages", "col_bufs", "cluster", "max_active_clusters")
+    return dict(zip(keys, out))
+
+
 #: offset of a CUresult from cuTensorMapEncodeTiled in a launch's return
 #: code (csrc/p1_scan_sm90.cuh, kEncodeError)
 ENCODE_ERROR = 10000

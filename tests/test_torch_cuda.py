@@ -73,6 +73,15 @@ def _dyadic(n, d, seed=0, nnz=20, step=2.0 ** -7):
     return (np.round(dense / step) * step).astype(np.float32)
 
 
+def _admit_any_m(monkeypatch, m):
+    """The wrappers take JAX's shapes (m >= 256); the kernels take any m.
+    Below 256, let the wrappers launch (one row block of the cluster)."""
+    if m < 256:
+        rule = K.p1_fused_supported
+        monkeypatch.setattr(K, "p1_fused_supported",
+                            lambda m_, *shape: rule(256, *shape))
+
+
 @pytest.mark.parametrize("m,n,d,tile,cand_c,thr", [
     (256, 1024, 128, 256, 8, 0.6),
     (300, 8192, 512, 4096, 64, 0.5),    # ragged last row block
@@ -84,8 +93,13 @@ def _dyadic(n, d, seed=0, nnz=20, step=2.0 ** -7):
     (300, 8192, 1024, 4096, 256, 0.4),  # streamed, ragged, widest top-C
     (256, 4096, 4096, 4096, 16, 0.3),   # streamed, 64 k blocks a sub-block
     (256, 1024, 32768, 256, 8, 0.3),    # the widest hash_dim the config takes
+    (100, 1024, 1024, 256, 16, 0.4),    # one row block: the cluster's peer has none
+    (300, 4096, 768, 1024, 64, 0.4),    # 3 row blocks: the last cluster half empty
+    (256, 256, 1024, 256, 8, 0.4),      # one tile of 256: a single sub-block pair
+    (256, 2048, 640, 256, 16, 0.4),     # 10 k blocks a sub-block
 ])
-def test_p1_kernel_equals_plain(dev, m, n, d, tile, cand_c, thr):
+def test_p1_kernel_equals_plain(dev, monkeypatch, m, n, d, tile, cand_c, thr):
+    _admit_any_m(monkeypatch, m)
     b = torch.from_numpy(_dyadic(n, d, seed=m)).to(torch.bfloat16).to(dev)
     a = b[:m].contiguous()
     before = K.LAUNCHES["p1_fused_closed2"]
@@ -128,9 +142,14 @@ def _masked_cols(v, c):
     (256, [4096, 4096], 1024, 4096, 64, 0.4),        # A streamed
     (300, [768, 256, 1280], 768, 256, 16, 0.4),      # streamed, ragged
     (256, [2048, 2048], 4096, 1024, 8, 0.4),         # streamed, 64 k blocks
+    (100, [768, 256], 1024, 256, 16, 0.4),           # one row block, peer empty
+    (300, [1024, 512], 768, 256, 16, 0.4),           # last cluster half empty
+    (256, [256, 256], 1024, 256, 8, 0.4),            # chunks of a single pair
+    (256, [1280, 768], 640, 256, 16, 0.4),           # 10 k blocks a sub-block
 ])
-def test_chain_kernel_equals_plain_and_one_pass(dev, m, chunks, d, tile,
-                                                cand_c, thr):
+def test_chain_kernel_equals_plain_and_one_pass(dev, monkeypatch, m, chunks, d,
+                                                tile, cand_c, thr):
+    _admit_any_m(monkeypatch, m)
     b = torch.from_numpy(_dyadic(sum(chunks), d, seed=m)).to(torch.bfloat16).to(dev)
     a = b[:m].contiguous()
     st_k = K.p1_chain_init(m, cand_c, dev)
@@ -194,6 +213,9 @@ def _check_tri_segments(b, tile, cpg, bm, cand_c, thr):
     (4096, 1024, 512, 2, 512, 64, 0.3),  # A streamed
     (2048, 768, 256, 1, 128, 16, 0.3),   # streamed, block_m < tile
     (2048, 4096, 512, 1, 512, 8, 0.3),   # streamed, 64 k blocks
+    (1024, 768, 256, 2, 128, 16, 0.3),   # streamed, block_m 128, 2 segments
+    (2048, 640, 512, 1, 128, 8, 0.3),    # streamed, 10 k blocks a sub-block
+    (512, 1024, 256, 1, 128, 8, 0.3),    # streamed; segment 1 a single sub-block pair
 ])
 def test_tri_kernel_equals_plain(dev, n, d, tile, cpg, bm, cand_c, thr):
     b = torch.from_numpy(_dyadic(n, d, seed=n + d)).to(torch.bfloat16).to(dev)
@@ -204,9 +226,10 @@ def test_tri_kernel_equals_plain(dev, n, d, tile, cpg, bm, cand_c, thr):
 @pytest.mark.parametrize("d", [128, 512])
 def test_streamed_a_is_bitwise_resident(dev, d):
     """At d <= 512 the scan keeps A resident; streamed through the ring
-    (``_build.force_stream_a``), with the k blocks in the same order, it
-    must give the same bits: every output of the three kernels, -inf slots
-    included."""
+    (``_build.force_stream_a``: sub-block pairs, B shared by a cluster of
+    2 row blocks), with the k blocks in the same order, it must give the
+    same bits: every output of the three kernels, -inf slots included.
+    300 rows: the last cluster's second block has none."""
     b = torch.from_numpy(_dyadic(4096, d, seed=d)).to(torch.bfloat16).to(dev)
     a = b[:300].contiguous()
     for stream in (False, True):
@@ -241,6 +264,24 @@ def test_streamed_a_is_bitwise_resident(dev, d):
         for name, g, r in zip(("rv", "rc", "rmeta"), out[1][:3], out[0][:3]):
             assert torch.equal(g, r), ("p1_tri_fused", s, name)
     assert torch.equal(fs[0], fs[1]), "p1_tri_fused future state"
+
+
+def test_streamed_scan_plan(dev):
+    """The streamed scan at d = 1024: 4 stages of 48 KB (A's box and a
+    sub-block pair's two B boxes), clusters of 2 that the card can place;
+    forced at d = 512 the same.  The resident scan at d = 512 keeps its
+    ring of 16 KB stages and no cluster."""
+    for name in _build.STREAM_A_KERNELS:
+        plan = _build.scan_plan(name, 1024)
+        assert plan["stages"] == 4 and plan["cluster"] == 2, (name, plan)
+        assert plan["max_active_clusters"] > 0, (name, plan)
+        with _build.force_stream_a():
+            forced = _build.scan_plan(name, 512)
+        assert forced["stages"] == 4 and forced["cluster"] == 2, (name, forced)
+        resident = _build.scan_plan(name, 512)
+        assert resident["cluster"] == 1 and resident["stages"] >= 5, (name, resident)
+    tri = _build.scan_plan("p1_tri_fused", 1024)
+    assert tri["col_bufs"] // 2 * 16 > tri["stages"], tri  # see the epilogue's rule
 
 
 def test_tri_kernel_ties_take_first_row(dev):

@@ -5,10 +5,11 @@ The JAX package runs its Pallas scan at every ``d % 128 == 0``
 (``p1_fused_supported``, string_grouper_tpu/ops/pallas_kernels.py:729-743);
 so does the port's CUDA scan, which streams A through its ring past
 d = 512.  Here the port's plain versions (what the kernels are held to on
-the card) meet the Pallas kernels in interpret mode at d = 768 and 1024 on
-dyadic rows (multiples of 2^-9 below 1/2: exact in bf16, and every f32 sum
-of their products is exact in any order), so every output must be BITWISE
-equal.  Then ``match_strings(..., hash_dim=1024)``: the port on the CPU
+the card) meet the Pallas kernels in interpret mode at d = 640, 768 and
+1024, with one pair of 128-column sub-blocks and with a ragged row block
+of 100, on dyadic rows (multiples of 2^-9 below 1/2: exact in bf16, and
+every f32 sum of their products is exact in any order), so every output
+must be BITWISE equal.  Then ``match_strings(..., hash_dim=1024)``: the port on the CPU
 against JAX on the CPU, exactly, without a mesh and on a (2, 2) virtual
 mesh, and with the fused branches opened on the CPU (``_on_card`` patched)
 so that the matcher's own rule sends the scan through the kernel wrappers
@@ -71,12 +72,19 @@ def _tj(x):
 
 
 # ------------------------------------------------------------------ closed
-@pytest.mark.parametrize("d", [768, 1024])
+@pytest.mark.parametrize("m,n,d", [
+    (256, 1024, 768),
+    (256, 1024, 1024),
+    (256, 1024, 640),  # 10 k blocks of 64 (5 of 128)
+    (256, 256, 1024),  # one tile of 256: a single pair of 128-column sub-blocks
+    (100, 1024, 768),  # one ragged row block (the card's cluster peer has no rows)
+])
 @pytest.mark.parametrize("thr,cand_c", [(0.5, 8), (0.3, 16)])
-def test_closed2_plain_equals_pallas_wide(d, thr, cand_c):
-    b = cluster_rows(1024, d, seed=d)
-    (at, aj), (bt, bj) = _tj(b[:256]), _tj(b)
-    assert K.p1_fused_supported(256, 1024, d, 256, cand_c)
+def test_closed2_plain_equals_pallas_wide(m, n, d, thr, cand_c):
+    b = cluster_rows(n, d, seed=d)
+    (at, aj), (bt, bj) = _tj(b[:m]), _tj(b)
+    # the wrapper's shape rule (JAX's) wants m >= 256; the card tests lift it
+    assert m < 256 or K.p1_fused_supported(m, n, d, 256, cand_c)
     got = K.p1_fused_closed2(at, bt, np.float32(thr), tile=256, cand_c=cand_c)
     want = j_fused(aj, bj, jnp.float32(thr), tile=256, cand_c=cand_c,
                    block_m=256, interpret=True)
