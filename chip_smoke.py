@@ -162,12 +162,26 @@ Phases (any failure raises and the script exits non-zero without a result):
    stages, escalated rows, ladder rows and walls, memory keys and launches
    printed; each slot's first-pass launch timed by CUDA events beside its
    operations bound), each with ``p1_fused_closed2`` launched once per
-   slot on every kt = 2 pass.  A rank that fails or overruns its limit
-   fails the phase.
+   slot on every kt = 2 pass.  Gloo carries no CUDA tensors, so every
+   sharded fit's replication and exchanges take the host route
+   (``multihost.ROUTE_CALLS``: host calls only).  A rank that fails or
+   overruns its limit fails the phase.
+7n. The direct route: one fresh process of this script joins a one-rank
+   NCCL group (``device_id`` cuda:0) and runs the 20,000-name self-join
+   and the cross-joins with ids of the 20,000 names against 5,000 and of
+   the 5,000 against the 20,000 on the sharded tier over 2 slots (a (1, 2)
+   mesh over the card): each frame equal to the single-process card frame,
+   ``p1_fused_closed2`` launched once per slot on every kt = 2 pass (none
+   against 5,000 names: two slots of them give a 2,504-column tile, off
+   the kernel's rule as off JAX's), and ``multihost.ROUTE_CALLS`` one
+   direct replication, a direct exchange per scan pass and no host call;
+   the replication and exchanges timed on the host clock and by CUDA
+   events, the exchange's all-to-all apart.
 
 Without a CUDA GPU, or without the repository beside it, it exits non-zero
-and prints no result.  ``python chip_smoke.py --rank R WORLD PORT DIR`` is
-phase 7's rank R (started by the script itself).
+and prints no result.  ``python chip_smoke.py --rank R WORLD PORT DIR
+BACKEND`` is rank R of phase 7 (gloo) or 7n (nccl), started by the
+script itself.
 """
 
 import json
@@ -226,6 +240,9 @@ PEAK_BYTES = 3.35e12
 # Its host link, PCIe Gen5 x16, one direction (published): the floor of
 # what a rank's exchange moves from the card to the host.
 PEAK_PCIE = 64e9
+# NVLink 4 between H100 SXM cards, one direction (published): the floor of
+# what the direct route moves between ranks on distinct cards.
+PEAK_NVLINK = 450e9
 # Phase 7: ranks on the one card, the sharded run's corpus, and the wall
 # limit of the ranks together.
 WORLD = 2
@@ -1247,18 +1264,118 @@ def spy_mesh_collectives(D):
 
 
 # ------------------------------------------------------------------ phase 7
+def spy_routes(MH, link=PEAK_NVLINK):
+    """Wrap the sharded tiers' ``_replicate_rows`` and ``_exchange_rows``
+    (module attributes of ``MH``, looked up at each call): each call runs
+    between two synchronizes, timed on the host clock and by CUDA events on
+    the current stream, with its route (``MH._route``) and the least bytes
+    it must move.  Direct route: what the rank receives from or sends to
+    its peers, whichever is more, over ``link`` (none with one rank), and
+    the exchange's download of the rank's own rows over PCIe.  Host route:
+    every row that crosses PCIe.  The exchange's all-to-all
+    (``MH._all_to_all``) is timed apart: entered after a synchronize, at
+    a wall-clock instant (``entered_at``; ranks of one host share the
+    clock, so the last rank's instant less a rank's is its wait for its
+    peers), with CUDA events before and after it, so each exchange splits
+    into the packing (and the host route's download), the collective, and
+    the merge and download of the rank's rows.  Returns ``(restore,
+    report)``; ``report()`` gives, per function, its calls, routes, host
+    ms (in all and per call), CUDA-event ms, bytes and bound ms."""
+    import torch.distributed as dist
+
+    names = ("_replicate_rows", "_exchange_rows")
+    real = {n: getattr(MH, n) for n in names}
+    real_a2a = MH._all_to_all
+    calls = {n: [] for n in names}
+    a2a = []
+
+    def moved(name, route, args):
+        """(bytes between ranks, bytes across PCIe) of one call."""
+        rank, world = dist.get_rank(), dist.get_world_size()
+        if name == "_replicate_rows":
+            block, counts, _n_rows = args
+            row = block.shape[1] * block.element_size()
+            if route == "direct":
+                return int(counts.sum() - counts[rank]) * row, 0
+            return 0, int(counts.sum()) * row
+        cols, _bound, _tmax, _starts, counts = args
+        own, w = int(counts[rank]), cols.shape[1]
+        if route == "direct":
+            peers = max(int(counts.sum()) - own, (world - 1) * own) * (w + 2) * 4
+            return peers, own * (world * w + 2) * 4
+        return 0, int(counts.sum()) * (w + 2) * 4
+
+    def all_to_all(*args):
+        torch.cuda.synchronize()
+        e0, e1 = _events()
+        a2a.append(dict(entered_at=time.time(), ev=(e0, e1)))
+        e0.record()
+        real_a2a(*args)
+        e1.record()
+
+    def timed(name):
+        def call(*args):
+            route = MH._route(args[0].device)
+            torch.cuda.synchronize()
+            e0, e1 = _events()
+            a2a.clear()
+            t0 = time.perf_counter()
+            e0.record()
+            out = real[name](*args)
+            e1.record()
+            torch.cuda.synchronize()
+            c = dict(route=route, s=time.perf_counter() - t0, ev=(e0, e1),
+                     bytes=moved(name, route, args))
+            if a2a:
+                (a,) = a2a
+                c["a2a"] = dict(entered_at=a["entered_at"],
+                                before_ms=e0.elapsed_time(a["ev"][0]),
+                                collective_ms=a["ev"][0].elapsed_time(a["ev"][1]),
+                                after_ms=a["ev"][1].elapsed_time(e1))
+            calls[name].append(c)
+            return out
+        return call
+
+    for n in names:
+        setattr(MH, n, timed(n))
+    MH._all_to_all = all_to_all
+
+    def restore():
+        for n in names:
+            setattr(MH, n, real[n])
+        MH._all_to_all = real_a2a
+
+    def report():
+        out = {}
+        for n, cs in calls.items():
+            peers = sum(c["bytes"][0] for c in cs)
+            pcie = sum(c["bytes"][1] for c in cs)
+            out[n.strip("_").split("_")[0]] = dict(
+                calls=len(cs), routes=sorted({c["route"] for c in cs}),
+                host_ms=sum(c["s"] for c in cs) * 1e3,
+                host_ms_each=[c["s"] * 1e3 for c in cs],
+                cuda_ms=sum(c["ev"][0].elapsed_time(c["ev"][1]) for c in cs),
+                peer_bytes=peers, pcie_bytes=pcie,
+                bound_ms=(peers / link + pcie / PEAK_PCIE) * 1e3,
+                **({"all_to_all_each": [c["a2a"] for c in cs]}
+                   if any("a2a" in c for c in cs) else {}))
+        return out
+
+    return restore, report
+
+
 def spy_rank_scan(MH, slots=1):
     """Wrap the multi-process tiers' ``_local_block`` (CUDA events; one
-    call per slot per scan pass) and ``_exchange_rows`` (host clock, after
-    a synchronize so the scan's own device time stays out of it).  Returns
-    ``(restore, report)``; ``report()`` gives each slot's scan beside its
-    operations bound -- the first pass's ``slots`` calls also on their own
-    -- and the exchanges beside their bytes bound (what the card must send
-    to the host, at the host link's rate), and the first slot's
-    ``torch.mm`` of the same operands (in row blocks of at most 16 GiB of
-    product) as its library yardstick."""
-    real_block, real_exchange = MH._local_block, MH._exchange_rows
-    scans, exchanges, first = [], [], []
+    call per slot per scan pass), and their ``_replicate_rows`` and
+    ``_exchange_rows`` (:func:`spy_routes`).  Returns ``(restore,
+    report)``; ``report()`` gives each slot's scan beside its operations
+    bound -- the first pass's ``slots`` calls also on their own -- the
+    replication and the exchanges beside their bytes bound, and the first
+    slot's ``torch.mm`` of the same operands (in row blocks of at most 16
+    GiB of product) as its library yardstick."""
+    real_block = MH._local_block
+    restore_routes, route_report = spy_routes(MH)
+    scans, first = [], []
 
     def local_block(a_rows, b_loc, thr, col_off, *a, **k):
         e0, e1 = _events()
@@ -1273,19 +1390,11 @@ def spy_rank_scan(MH, slots=1):
                           ev=(e0, e1)))
         return out
 
-    def exchange(cols, bound, tmax, starts, counts):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = real_exchange(cols, bound, tmax, starts, counts)
-        exchanges.append(dict(s=time.perf_counter() - t0,
-                              bytes=cols.nbytes + bound.nbytes + tmax.nbytes,
-                              rows_out=len(out[0])))
-        return out
-
-    MH._local_block, MH._exchange_rows = local_block, exchange
+    MH._local_block = local_block
 
     def restore():
-        MH._local_block, MH._exchange_rows = real_block, real_exchange
+        MH._local_block = real_block
+        restore_routes()
 
     def report():
         torch.cuda.synchronize()
@@ -1306,7 +1415,8 @@ def spy_rank_scan(MH, slots=1):
         lib_ms = cuda_ms(mm_blocks, 3)
         first.clear()
         torch.cuda.empty_cache()
-        ex_bytes = sum(e["bytes"] for e in exchanges)
+        routes = route_report()
+        ex = routes["exchange"]
         return dict(
             scan_passes=passes, first_scan_ms=passes[0]["ms"],
             first_scan_bound_ms=passes[0]["bound_ms"], first_scan_library_ms=lib_ms,
@@ -1316,8 +1426,9 @@ def spy_rank_scan(MH, slots=1):
             kt2_calls=sum(p["k_tile"] == 2 for p in passes),
             all_scans_ms=sum(p["ms"] for p in passes),
             all_scans_bound_ms=sum(p["bound_ms"] for p in passes),
-            exchanges=len(exchanges), exchange_ms=sum(e["s"] for e in exchanges) * 1e3,
-            exchange_bytes=ex_bytes, exchange_bound_ms=ex_bytes / PEAK_PCIE * 1e3,
+            exchanges=ex["calls"], exchange_ms=ex["host_ms"],
+            exchange_bytes=ex["peer_bytes"] + ex["pcie_bytes"],
+            exchange_bound_ms=ex["bound_ms"], routes=routes,
         )
 
     return restore, report
@@ -1329,17 +1440,19 @@ def _free_port() -> str:
         return str(sock.getsockname()[1])
 
 
-def run_ranks(out_dir: Path) -> list:
-    """Phase 7's ranks: WORLD fresh processes of this script, to their end
-    within RANK_LIMIT_S together.  A rank that fails or overruns fails the
-    phase (every rank is killed first).  Returns their result records."""
+def run_ranks(out_dir: Path, world: int = WORLD, backend: str = "gloo") -> list:
+    """``world`` ranks of phase 7 (gloo) or 7n (nccl): fresh processes of
+    this script, to their end within RANK_LIMIT_S together.  A rank that
+    fails or overruns fails the phase (every rank is killed first).
+    Returns their result records."""
     port = _free_port()
-    env = dict(os.environ, GLOO_SOCKET_IFNAME="lo")
-    logs = [open(out_dir / f"rank_{r}.log", "w") for r in range(WORLD)]
+    env = dict(os.environ, GLOO_SOCKET_IFNAME="lo", NCCL_SOCKET_IFNAME="lo")
+    tag = f"{backend}_{world}"
+    logs = [open(out_dir / f"rank_{tag}_{r}.log", "w") for r in range(world)]
     procs = [subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), "--rank", str(r), str(WORLD),
-         port, str(out_dir)], env=env, stdout=logs[r], stderr=subprocess.STDOUT)
-        for r in range(WORLD)]
+        [sys.executable, os.path.abspath(__file__), "--rank", str(r), str(world),
+         port, str(out_dir), backend], env=env, stdout=logs[r], stderr=subprocess.STDOUT)
+        for r in range(world)]
     deadline = time.perf_counter() + RANK_LIMIT_S
     failed = None
     try:
@@ -1359,20 +1472,23 @@ def run_ranks(out_dir: Path) -> list:
                 p.wait()
         for f in logs:
             f.close()
-    for r in range(WORLD):
-        for line in (out_dir / f"rank_{r}.log").read_text().splitlines():
-            log(f"  [rank {r}] {line}")
+    for r in range(world):
+        for line in (out_dir / f"rank_{tag}_{r}.log").read_text().splitlines():
+            log(f"  [{backend} rank {r}] {line}")
     if failed:
-        raise RuntimeError(f"phase 7: {failed}")
-    return [json.loads((out_dir / f"rank_{r}.json").read_text()) for r in range(WORLD)]
+        raise RuntimeError(f"{backend} ranks: {failed}")
+    return [json.loads((out_dir / f"rank_{tag}_{r}.json").read_text()) for r in range(world)]
 
 
 def rank_main(args) -> int:
-    """One rank of phase 7 (``--rank R WORLD PORT DIR``): joins the gloo
-    group, runs the phase's calls on ``cuda:0`` and holds each frame
-    against the parent's single-process frame pickled in DIR; writes its
-    record to DIR/rank_R.json."""
+    """One rank of phase 7 or 7n (``--rank R WORLD PORT DIR BACKEND``):
+    joins the group, runs the phase's calls on ``cuda:0`` and holds each
+    frame against the parent's single-process frame pickled in DIR;
+    writes its record to DIR/rank_BACKEND_WORLD_R.json.  Under gloo the
+    sharded tier's device tensors (on the card) must take the host route,
+    under nccl the direct one (``multihost.ROUTE_CALLS``)."""
     rank, world, port, out_dir = int(args[0]), int(args[1]), args[2], Path(args[3])
+    backend = args[4]
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA GPU visible", file=sys.stderr)
         return 2
@@ -1385,12 +1501,24 @@ def rank_main(args) -> int:
     from string_grouper_tpu_torch.utils.synthetic import synthetic_company_names
 
     torch.cuda.set_device(0)
-    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
-                            world_size=world, timeout=timedelta(seconds=300))
+    card = torch.device("cuda", 0)
+    dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=world, timeout=timedelta(seconds=300),
+                            **({"device_id": card} if backend == "nccl" else {}))
     threads = max(1, ((os.cpu_count() or 2) - 1) // world)
+    route = "direct" if backend == "nccl" else "host"
+    assert MH._route(card) == route, (backend, MH._route(card))
     log(f"rank {rank} of {world} on {torch.cuda.get_device_name(0)} (cuda:0), "
-        f"number_of_processes={threads}")
-    rec = dict(rank=rank, launches={}, stages={})
+        f"{backend}, the {route} route, number_of_processes={threads}")
+    rec = dict(rank=rank, backend=backend, launches={}, stages={}, routes={})
+    MH.reset_route_calls()
+
+    def check_route(label):
+        """The sharded fit's device tensors took the group's route alone."""
+        calls = {f"{r} {op}": n for (r, op), n in MH.ROUTE_CALLS.items()}
+        MH.reset_route_calls()
+        assert set(calls) == {f"{route} replicate", f"{route} exchange"}, (label, calls)
+        rec["routes"][label] = calls
 
     def check(label, got, want, path, wall, sg=None):
         launches = dict(K.LAUNCHES)
@@ -1434,28 +1562,58 @@ def rank_main(args) -> int:
     # virtual mesh over the card, WORLD x SLOTS devices in all
     slot_mesh = Mesh([[torch.device("cuda", 0)] * SLOTS])
 
-    def sharded_slots(label, series, want, **kw):
+    def sharded_slots(label, series, want, fused=True, **kw):
         """A sharded fit over the rank's slots: the single-process frame,
         and ``p1_fused_closed2`` launched once per slot on every kt = 2
-        pass (the ladder's wider rungs run the torch-op body)."""
+        pass (the ladder's wider rungs run the torch-op body).  With
+        ``fused=False`` (a right tile that is no multiple of 256, off the
+        kernel's rule as off JAX's) every pass runs the torch-op body."""
         restore, report = spy_rank_scan(MH, SLOTS)
         try:
             frame, sg, wall = fit(series, multihost="sharded", mesh=slot_mesh, **kw)
         finally:
             restore()
-        check(label, frame, want, DEFAULT_PATH, wall, sg)
+        check(label, frame, want, DEFAULT_PATH if fused else ("device_hash_codes",),
+              wall, sg)
+        check_route(label)
         sc = report()
         n_fused = rec["launches"][label]["p1_fused_closed2"]
         assert sc["kt2_calls"] >= SLOTS and sc["kt2_calls"] % SLOTS == 0, sc["kt2_calls"]
-        assert sc["fused_calls"] == sc["kt2_calls"] == n_fused, (sc["fused_calls"], n_fused)
+        assert sc["fused_calls"] == n_fused == (sc["kt2_calls"] if fused else 0), (
+            sc["fused_calls"], n_fused)
         assert [p["col_off"] for p in sc["first_pass_slots"]] == [
             (rank * SLOTS + j) * sc["scan_passes"][0]["cols"] for j in range(SLOTS)]
         log(f"{label}: p1_fused_closed2 launched {n_fused} times, once per slot on each "
             f"of {sc['kt2_calls'] // SLOTS} kt=2 pass(es); first pass per slot: "
             + json.dumps(sc["first_pass_slots"]))
+        log(f"{label}: route calls {rec['routes'][label]}; replication and exchanges "
+            "(host clock and CUDA events): " + json.dumps(sc["routes"]))
         return frame, sg, sc
 
     try:
+        if backend == "nccl":
+            # phase 7n: the direct route's collectives in a one-rank NCCL group
+            s20 = pd.Series(synthetic_company_names(N_FRAME))
+            dupes5 = pd.Series(synthetic_company_names(N_ORACLE, seed=7))
+            rec["nccl"] = {}
+            ids20 = pd.Series([f"m{i}" for i in range(N_FRAME)])
+            ids5 = pd.Series([f"d{i}" for i in range(N_ORACLE)])
+            for label, series, want, kw in (
+                    (f"self-join {N_FRAME} sharded, {SLOTS} slots, nccl", s20, "self", {}),
+                    # 5,000 names over 2 slots: tile 2504, which neither the
+                    # kernel's rule nor JAX's takes; the torch-op body runs
+                    (f"cross-join with ids {N_FRAME} x {N_ORACLE} sharded, {SLOTS} slots, "
+                     "nccl", s20, "cross_ids",
+                     dict(other=dupes5, master_id=ids20, duplicates_id=ids5, fused=False)),
+                    (f"cross-join with ids {N_ORACLE} x {N_FRAME} sharded, {SLOTS} slots, "
+                     "nccl", dupes5, "cross_5k",
+                     dict(other=s20, master_id=ids5, duplicates_id=ids20))):
+                _, _, sc = sharded_slots(label, series, want, **kw)
+                assert rec["routes"][label]["direct replicate"] == 1, rec["routes"][label]
+                assert rec["routes"][label]["direct exchange"] == sc["exchanges"], sc
+                rec["nccl"][label] = sc["routes"]
+            (out_dir / f"rank_{backend}_{world}_{rank}.json").write_text(json.dumps(rec))
+            return 0
         s20 = pd.Series(synthetic_company_names(N_FRAME))
         dupes5 = pd.Series(synthetic_company_names(N_ORACLE, seed=7))
         ids20 = pd.Series([f"m{i}" for i in range(N_FRAME)])
@@ -1465,6 +1623,7 @@ def rank_main(args) -> int:
         check(f"self-join {N_FRAME} (auto)", frame, "self", DEFAULT_PATH, wall, sg)
         frame, sg, wall = fit(s20, multihost="sharded")
         check(f"self-join {N_FRAME} sharded", frame, "self", DEFAULT_PATH, wall, sg)
+        check_route(f"self-join {N_FRAME} sharded")
         out, wall = call(sgt.match_strings, s20, dupes5, ids20, ids5)
         check(f"cross-join with ids {N_FRAME} x {N_ORACLE}", out, "cross_ids",
               DEFAULT_PATH, wall)
@@ -1498,6 +1657,7 @@ def rank_main(args) -> int:
             restore()
         label = f"self-join {N_SHARDED} sharded"
         check(label, frame, "sharded_100k", DEFAULT_PATH, wall, sg)
+        check_route(label)
         st = rec["stages"][label]
         check_memory(st)
         log("stages: " + json.dumps(st))
@@ -1518,7 +1678,7 @@ def rank_main(args) -> int:
         del frame, sg, s_full
     finally:
         dist.destroy_process_group()
-    (out_dir / f"rank_{rank}.json").write_text(json.dumps(rec))
+    (out_dir / f"rank_{backend}_{world}_{rank}.json").write_text(json.dumps(rec))
     return 0
 
 
@@ -2029,6 +2189,9 @@ def main() -> int:
     ids5 = pd.Series([f"d{i}" for i in range(N_ORACLE)])
     t0 = time.perf_counter()
     want_cross = sgt.match_strings(s20, dupes5, ids20, ids5)
+    # phase 7n's cross-join: 20,000 names on the right give each of 2 slots
+    # whole 4096-column tiles, so its kt = 2 pass takes the kernel
+    want_cross_5k = sgt.match_strings(dupes5, s20, ids5, ids20)
     s_sh = pd.Series(synthetic_company_names(N_SHARDED))
     want_sh = sgt.match_strings(s_sh)
     log(f"single-process card frames for phase 7: cross-join with ids "
@@ -2038,12 +2201,12 @@ def main() -> int:
              "groups": frames4["group_similar_strings, centroid"],
              "nearest": frames4[f"match_most_similar vs {N_ORACLE}"],
              "f32": frames4["float32 self-join"], "full": out,
-             "sharded_100k": want_sh}
+             "sharded_100k": want_sh, "cross_5k": want_cross_5k}
     t0 = time.perf_counter()
     for k, v in wants.items():
         v.to_pickle(p7 / f"want_{k}.pkl")
     log(f"frames pickled for the ranks in {time.perf_counter() - t0:.2f} s")
-    del wants, want_cross, want_sh, out
+    del wants, want_cross, want_cross_5k, want_sh, out
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     recs = run_ranks(p7)
@@ -2076,8 +2239,19 @@ def main() -> int:
                 exchanges=sl["exchanges"], exchange_ms=sl["exchange_ms"],
                 exchange_bound_ms=sl["exchange_bound_ms"],
                 exchange_bytes=sl["exchange_bytes"])))
+        log(f"route calls (gloo, card tensors: the host route), rank {rec['rank']}: "
+            + json.dumps(rec["routes"]))
     # rank 0's launches on the sharded tier over its slots (663k)
     l_slots = recs[0]["launches"][f"self-join {N_FULL} sharded, {SLOTS} slots"]
+
+    # ---- phase 7n: the direct route, NCCL in a one-rank group -------------
+    stamp("phase 7n: the sharded tier's direct route, one NCCL rank on the card")
+    t0 = time.perf_counter()
+    (rec,) = run_ranks(p7, 1, "nccl")
+    log(f"1 nccl rank: {time.perf_counter() - t0:.1f} s wall, passed")
+    for label, routes in rec["nccl"].items():
+        log(f"{label}: route calls {rec['routes'][label]}, launches "
+            f"{rec['launches'][label]}; replication and exchanges: " + json.dumps(routes))
     shutil.rmtree(p7, ignore_errors=True)
     stamp("all phases passed")
 

@@ -40,10 +40,35 @@ Three tiers live here:
 Collectives.  Host values travel as RAW BYTES (``uint8`` CPU tensors) over
 a gloo group -- the default group when its backend is gloo, else one gloo
 group made beside it -- so uint64 vocabulary keys and float64 values stay
-exact.  The JAX tier's device collectives (the sharded hash matrix, the
-replicated left hash, the ``all_gather`` / ``pmax`` of the phase-1 scan)
-run through the host on the same group; there is no device-to-device
-(NCCL) route.  Every decision that could send one rank into a collective
+exact.  They are host arrays in both packages (the vocabulary, the ELL
+blocks, the ring's shards, the pairs); JAX moves them through its devices
+only because it has no host transport.
+
+The sharded tiers' DEVICE tensors -- the replicated left hash
+(:func:`_replicate_rows`, JAX's gather of a sharded device array) and the
+phase-1 candidate merge (:func:`_exchange_rows`, JAX's ``all_gather`` /
+``pmax`` over ``mp``) -- take one of two routes, chosen by one rule
+(:func:`_route`) from how the group was set up:
+
+* DIRECT, when the default group's backend carries the tensors' device
+  type (``nccl`` carries ``cuda``, ``gloo`` carries ``cpu``, a combined
+  backend such as ``"cpu:gloo,cuda:nccl"`` each type it names): one
+  collective on the tensors' own device (``all_gather_single`` /
+  ``all_to_all_single``), even in a one-rank group; nothing passes
+  through numpy, and the exchange downloads only this rank's rows.  Under
+  nccl the tensors must lie on the rank's current CUDA device, the one
+  the communicator is bound to, or the call raises.
+* HOST, in every other case (chiefly gloo with CUDA tensors, e.g. several
+  ranks on one card): the replication broadcasts each rank's rows card ->
+  host -> gloo -> host -> card, and the exchange downloads the ranks' rows
+  once and runs the same all-to-all over the gloo group.
+
+Nothing falls back from one route to the other: a collective that fails
+raises.  ``ROUTE_CALLS`` counts the collectives each route runs, keyed
+by ``(route, op)``.  Without a group both routes are the identity and
+run none.
+
+Every decision that could send one rank into a collective
 its peers skip is made global first (the capacity checks, the ring's
 ``need`` vector, the ladder's continuation, the mesh validation and
 slot count, the completeness checks), so a raise happens on every rank
@@ -55,6 +80,7 @@ from __future__ import annotations
 
 import os
 import time
+from collections import Counter
 from dataclasses import replace
 from typing import Optional, Tuple
 
@@ -102,6 +128,11 @@ __all__ = [
 #: the gloo group made for host values beside a non-gloo default group,
 #: per default group
 _HOST_GROUPS: dict = {}
+#: collectives run for the sharded tiers' device tensors, by (route, op):
+#: ("direct" | "host", "replicate" | "exchange")
+ROUTE_CALLS: Counter = Counter()
+#: the device type each backend carries on the direct route
+_CARRIES = {"gloo": "cpu", "nccl": "cuda"}
 
 
 # ---------------------------------------------------------------- collectives
@@ -186,12 +217,82 @@ def _all_ranks_agree(ok: bool) -> bool:
     return bool(_allgather_host(np.array([int(ok)], np.int64)).min())
 
 
+def reset_route_calls() -> None:
+    ROUTE_CALLS.clear()
+
+
+def _route(device: torch.device) -> str:
+    """``"direct"`` when a group is initialized and the default group's
+    backend carries ``device``'s type (``nccl`` carries ``cuda``, ``gloo``
+    carries ``cpu``, a combined backend such as ``"cpu:gloo,cuda:nccl"``
+    each ``type:backend`` pair it names whose backend carries that type);
+    ``"host"`` otherwise."""
+    if not (dist.is_available() and dist.is_initialized()):
+        return "host"
+    for part in str(dist.get_backend()).split(","):
+        dev_type, _, name = part.rpartition(":")
+        carried = _CARRIES.get(name)
+        if carried == device.type and dev_type in ("", carried):
+            return "direct"
+    return "host"
+
+
+def _check_direct_device(device: torch.device) -> None:
+    """Under nccl the communicator is bound to the rank's current CUDA
+    device: a tensor elsewhere raises, naming both."""
+    if device.type == "cuda":
+        current = torch.device("cuda", torch.cuda.current_device())
+        if device != current:
+            raise ValueError(
+                f"the sharded tier's device tensors are on {device}, but "
+                f"this rank's current CUDA device is {current}, the one its "
+                "NCCL communicator is bound to: call "
+                "torch.cuda.set_device() with the rank's first slot"
+            )
+
+
+def _all_gather_single(out: torch.Tensor, inp: torch.Tensor) -> None:
+    # newer torch names it all_gather_single and deprecates
+    # all_gather_into_tensor, the only name torch 2.11 has
+    gather = getattr(dist, "all_gather_single", None)
+    (gather or dist.all_gather_into_tensor)(out, inp)
+
+
 def _replicate_rows(block: torch.Tensor, counts: np.ndarray,
                     n_rows: int) -> torch.Tensor:
     """``(n_rows, d)`` on ``block``'s device: every rank's first
     ``counts[rank]`` rows of its ``block`` in rank order, zero rows after
-    (the JAX tier's replicated gather of a sharded device array).  One
-    broadcast per source rank through the host, uploaded into the
+    (the JAX tier's replicated gather of a sharded device array), on the
+    route of :func:`_route`."""
+    if _route(block.device) == "direct":
+        return _replicate_direct(block, counts, n_rows)
+    return _replicate_host(block, counts, n_rows)
+
+
+def _replicate_direct(block, counts, n_rows):
+    """One all-gather on ``block``'s device: each rank's rows padded to
+    ``max(counts)``, moved as bytes so the transport cannot change a
+    bit, then copied in rank order into the preallocated result."""
+    _check_direct_device(block.device)
+    rank, size = _world()
+    width, d = int(counts.max()), block.shape[1]
+    mine = int(counts[rank])
+    send = block.new_zeros((width, d))
+    send[:mine] = block[:mine]
+    recv = block.new_empty((size * width, d))
+    _all_gather_single(recv.view(torch.uint8), send.view(torch.uint8))
+    ROUTE_CALLS["direct", "replicate"] += 1
+    out = block.new_zeros((n_rows, d))
+    lo = 0
+    for s in range(size):
+        cnt = int(counts[s])
+        out[lo:lo + cnt] = recv[s * width:s * width + cnt]
+        lo += cnt
+    return out
+
+
+def _replicate_host(block, counts, n_rows):
+    """One broadcast per source rank through the host, uploaded into the
     preallocated result, so the host holds one rank's block at a time."""
     rank, size = _world()
     out = block.new_zeros((n_rows, block.shape[1]))
@@ -208,60 +309,76 @@ def _replicate_rows(block: torch.Tensor, counts: np.ndarray,
                     else torch.empty((cnt, 2 * block.shape[1]),
                                      dtype=torch.uint8))
             dist.broadcast(host, src=s, group=_host_group())
+            ROUTE_CALLS["host", "replicate"] += 1
             if s != rank:
                 out[lo:lo + cnt] = host.to(block.device).view(block.dtype)
         lo += cnt
     return out
 
 
+def _all_to_all(recv: torch.Tensor, wire: torch.Tensor, counts: np.ndarray,
+                group) -> None:
+    """Rank p's ``counts[p]`` rows of ``wire`` (in rank order) to rank p:
+    ``recv`` receives every rank's block of this rank's rows, in rank
+    order."""
+    world = len(counts)
+    dist.all_to_all_single(recv, wire, [recv.shape[0] // world] * world,
+                           [int(c) for c in counts], group=group)
+
+
 def _exchange_rows(cols: torch.Tensor, bound: torch.Tensor,
                    tmax: torch.Tensor, starts: np.ndarray,
                    counts: np.ndarray):
-    """The host form of the JAX tier's ``all_gather`` over ``mp`` and its
-    ``pmax``, delivering to each rank only its own rows.
+    """The JAX tier's ``all_gather`` over ``mp`` and its ``pmax``,
+    delivering to each rank only its own rows, in one all-to-all on the
+    route of :func:`_route`.
 
     ``cols`` (m, W) int32, ``bound`` (m,) f32 and ``tmax`` (m,) int32 are
     this rank's phase 1 of m left rows against its right block; rank p
-    owns rows ``[starts[p], starts[p] + counts[p])``.  Each rank receives
-    its rows' slices from every peer (one gather per destination rank):
-    the columns concatenate along the width in rank order, bound and tmax
-    reduce by an elementwise max.  Returns host ``(cols, bound, tmax)`` of
-    this rank's rows."""
+    owns rows ``[starts[p], starts[p] + counts[p])``, contiguous in rank
+    order (rows past them are padding).  The owned rows travel packed as
+    ``(rows, W + 2)`` int32 (cols, bound's bits, tmax): on the tensors'
+    device on the direct route, downloaded first and over the gloo group
+    on the host route.  Each rank receives its rows' slices from every
+    peer: the columns concatenate along the width in rank order, bound and
+    tmax reduce by an elementwise max.  Returns host ``(cols, bound,
+    tmax)`` of this rank's rows, downloaded once."""
     rank, size = _world()
-    cols_h = cols.cpu().numpy()
-    bound_h = bound.cpu().numpy()
-    tmax_h = tmax.cpu().numpy()
-    lo = int(starts[rank])
-    hi = lo + int(counts[rank])
-    if size == 1:
-        return cols_h[lo:hi], bound_h[lo:hi], tmax_h[lo:hi]
-    w = cols_h.shape[1]
-    mine = None
-    for p in range(size):
-        m_p = int(counts[p])
-        if m_p == 0:
-            continue
-        a, b = int(starts[p]), int(starts[p]) + m_p
-        wire = torch.from_numpy(np.concatenate([
-            np.ascontiguousarray(cols_h[a:b], np.int32).view(np.uint8).ravel(),
-            np.ascontiguousarray(bound_h[a:b], np.float32).view(np.uint8),
-            np.ascontiguousarray(tmax_h[a:b], np.int32).view(np.uint8),
-        ]))
-        parts = ([torch.empty_like(wire) for _ in range(size)]
-                 if p == rank else None)
-        dist.gather(wire, parts, dst=p, group=_host_group())
-        if p == rank:
-            mine = [x.numpy() for x in parts]
-    if mine is None:
-        return (np.zeros((0, size * w), np.int32), np.zeros(0, np.float32),
-                np.zeros(0, np.int32))
-    m, nc = hi - lo, 4 * (hi - lo) * w
-    cols_my = np.concatenate(
-        [x[:nc].view(np.int32).reshape(m, w) for x in mine], axis=1
-    )
-    bound_my = np.max([x[nc:nc + 4 * m].view(np.float32) for x in mine], 0)
-    tmax_my = np.max([x[nc + 4 * m:].view(np.int32) for x in mine], 0)
-    return cols_my, bound_my, tmax_my
+    owners = np.flatnonzero(counts)
+    lo = int(starts[owners[0]]) if len(owners) else 0
+    total = int(counts.sum())
+    if np.any((counts > 0) & (starts != lo + np.cumsum(counts) - counts)):
+        raise ValueError(
+            f"the ranks' rows are not contiguous in rank order: starts "
+            f"{starts.tolist()}, counts {counts.tolist()}"
+        )
+    w = cols.shape[1]
+    route = _route(cols.device)
+    wire = torch.cat([
+        cols[lo:lo + total].to(torch.int32),
+        bound[lo:lo + total, None].view(torch.int32),
+        tmax[lo:lo + total, None].to(torch.int32),
+    ], 1)
+    mine = int(counts[rank])
+    recv = wire
+    if dist.is_available() and dist.is_initialized():
+        if route == "direct":
+            _check_direct_device(wire.device)
+        else:
+            wire = wire.cpu()
+        recv = wire.new_empty((size * mine, w + 2))
+        _all_to_all(recv, wire, counts,
+                    None if route == "direct" else _host_group())
+        ROUTE_CALLS[route, "exchange"] += 1
+    recv = recv.view(size, mine, w + 2)
+    flat = torch.cat([
+        recv[:, :, :w].permute(1, 0, 2).reshape(-1),
+        recv[:, :, w].view(torch.float32).amax(0).view(torch.int32),
+        recv[:, :, w + 1].amax(0),
+    ]).cpu().numpy()
+    n = mine * size * w
+    return (flat[:n].reshape(mine, size * w), flat[n:n + mine].view(np.float32),
+            flat[n + mine:])
 
 
 def _phase1_scan(a_rows: dict, b_slots: list, thr: float,

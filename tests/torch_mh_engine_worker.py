@@ -13,8 +13,11 @@ JAX package, and prints 'ENGINE_<CASE>_OK <rank>' per case, then
 'ENGINE_OK <rank>'.  The sharded tier also runs with 2 cpu device slots
 per rank (``mesh=``, the JAX worker's 2 devices per process), and with 1
 slot on rank 0 beside 2 on the others, which must raise on every rank
-('ENGINE_SLOTS_MISMATCH_OK <rank>').  Every rank runs on the CPU.  Imports
-only the port.
+('ENGINE_SLOTS_MISMATCH_OK <rank>').  Every rank runs on the CPU, so the
+sharded cases' device tensors take the direct route (one collective on the
+CPU tensors, ``multihost.ROUTE_CALLS``).  ``MH_ROUTE=host`` forces the host
+route in this process (``multihost._route`` patched) and runs only the
+sharded cases.  Imports only the port.
 """
 
 import os
@@ -30,6 +33,12 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import string_grouper_tpu_torch as sgt  # noqa: E402
 from string_grouper_tpu_torch import StringGrouper  # noqa: E402
 from string_grouper_tpu_torch.parallel import make_mesh  # noqa: E402
+from string_grouper_tpu_torch.parallel import multihost as MH  # noqa: E402
+
+
+# the cases of the sharded tier, which move device tensors between ranks
+SHARDED_CASES = ("sharded", "sharded_cross", "tiny", "ladder", "sharded_slots",
+                 "sharded_cross_slots", "ladder_slots")
 
 
 def names(n, seed):
@@ -62,6 +71,9 @@ def main():
 
 
 def run(rank, world, out_dir):
+    route = os.environ.get("MH_ROUTE", "direct")
+    if route == "host":
+        MH._route = lambda device: "host"
     n = int(os.environ.get("MH_ENGINE_N", "240"))
     series = names(n, seed=5)
     dup = names(n // 2, seed=6)
@@ -70,6 +82,11 @@ def run(rank, world, out_dir):
 
     def case(label, got, oracle_fn, sg=None):
         """Hold ``got`` against the single-process frame, save it, report."""
+        if label in SHARDED_CASES:
+            # the fit's device tensors took the route, and only it
+            assert set(MH.ROUTE_CALLS) == {(route, "replicate"),
+                                           (route, "exchange")}, MH.ROUTE_CALLS
+            MH.reset_route_calls()
         want = oracle_fn()
         if isinstance(want, pd.DataFrame):
             pd.testing.assert_frame_equal(got, want, check_exact=True)
@@ -81,37 +98,38 @@ def run(rank, world, out_dir):
 
     # one native thread per rank: the ranks share the host's cores
     kw = dict(device="cpu", number_of_processes=1)
-    # auto-selection: a plain engine call inside a group of several ranks
-    # routes through the multi-process tier
-    sg = StringGrouper(series, min_similarity=0.6, **kw).fit()
-    assert "match.mh_match_s" in sg.timings.seconds, sg.timings.seconds
-    assert sg.timings.labels["multihost_tier"] == "replicated"
-    stages = {k: v for k, v in sg.timings.seconds.items() if "mh_" in k}
-    print(f"STAGES {rank} {stages}", flush=True)
-    case("self", sg.get_matches(), lambda: sgt.match_strings(
-        series, min_similarity=0.6, multihost=False, **kw), sg)
+    if route == "direct":
+        # auto-selection: a plain engine call inside a group of several ranks
+        # routes through the multi-process tier
+        sg = StringGrouper(series, min_similarity=0.6, **kw).fit()
+        assert "match.mh_match_s" in sg.timings.seconds, sg.timings.seconds
+        assert sg.timings.labels["multihost_tier"] == "replicated"
+        stages = {k: v for k, v in sg.timings.seconds.items() if "mh_" in k}
+        print(f"STAGES {rank} {stages}", flush=True)
+        case("self", sg.get_matches(), lambda: sgt.match_strings(
+            series, min_similarity=0.6, multihost=False, **kw), sg)
 
-    case("cross", sgt.match_strings(series, dup, ids, dids,
-                                    min_similarity=0.5, **kw),
-         lambda: sgt.match_strings(series, dup, ids, dids, min_similarity=0.5,
-                                   multihost=False, **kw))
-    case("groups", sgt.group_similar_strings(series, ids, min_similarity=0.6,
-                                             **kw),
-         lambda: sgt.group_similar_strings(series, ids, min_similarity=0.6,
-                                           multihost=False, **kw))
-    case("top1", sgt.match_most_similar(series, dup, min_similarity=0.5, **kw),
-         lambda: sgt.match_most_similar(series, dup, min_similarity=0.5,
-                                        multihost=False, **kw))
+        case("cross", sgt.match_strings(series, dup, ids, dids,
+                                        min_similarity=0.5, **kw),
+             lambda: sgt.match_strings(series, dup, ids, dids, min_similarity=0.5,
+                                       multihost=False, **kw))
+        case("groups", sgt.group_similar_strings(series, ids, min_similarity=0.6,
+                                                 **kw),
+             lambda: sgt.group_similar_strings(series, ids, min_similarity=0.6,
+                                               multihost=False, **kw))
+        case("top1", sgt.match_most_similar(series, dup, min_similarity=0.5, **kw),
+             lambda: sgt.match_most_similar(series, dup, min_similarity=0.5,
+                                            multihost=False, **kw))
 
-    # float32 shards the encode too: the replicated tier's stage keys show
-    # that no full-corpus local encode ran
-    sg32 = StringGrouper(series, min_similarity=0.5,
-                         tfidf_matrix_dtype=np.float32, **kw).fit()
-    assert "match.mh_encode_s" in sg32.timings.seconds
-    assert "match.mh_ell_allgather_s" in sg32.timings.seconds
-    case("f32", sg32.get_matches(), lambda: sgt.match_strings(
-        series, min_similarity=0.5, tfidf_matrix_dtype=np.float32,
-        multihost=False, **kw), sg32)
+        # float32 shards the encode too: the replicated tier's stage keys show
+        # that no full-corpus local encode ran
+        sg32 = StringGrouper(series, min_similarity=0.5,
+                             tfidf_matrix_dtype=np.float32, **kw).fit()
+        assert "match.mh_encode_s" in sg32.timings.seconds
+        assert "match.mh_ell_allgather_s" in sg32.timings.seconds
+        case("f32", sg32.get_matches(), lambda: sgt.match_strings(
+            series, min_similarity=0.5, tfidf_matrix_dtype=np.float32,
+            multihost=False, **kw), sg32)
 
     # the sharded tier: no full-corpus ELL on any rank -- per-rank exact
     # ELL bytes ~1/world of what the replicated tier holds, one remote
@@ -168,15 +186,16 @@ def run(rank, world, out_dir):
     case("ladder_slots", sg_esc2.get_matches(), lambda: sgt.match_strings(
         dup_heavy, min_similarity=0.5, multihost=False, **kw), sg_esc2)
 
-    # slot counts that differ between ranks raise on every rank, no hang
-    mixed = dict(slots, mesh=None if rank == 0 else slots["mesh"])
-    try:
-        sgt.match_strings(series, min_similarity=0.6, **mixed)
-    except ValueError as e:
-        assert "slot counts differ" in str(e), e
-        print(f"ENGINE_SLOTS_MISMATCH_OK {rank} {e}", flush=True)
-    else:
-        raise AssertionError("differing slot counts did not raise")
+    if route == "direct":
+        # slot counts that differ between ranks raise on every rank, no hang
+        mixed = dict(slots, mesh=None if rank == 0 else slots["mesh"])
+        try:
+            sgt.match_strings(series, min_similarity=0.6, **mixed)
+        except ValueError as e:
+            assert "slot counts differ" in str(e), e
+            print(f"ENGINE_SLOTS_MISMATCH_OK {rank} {e}", flush=True)
+        else:
+            raise AssertionError("differing slot counts did not raise")
     print(f"ENGINE_OK {rank}", flush=True)
 
 
