@@ -42,7 +42,7 @@ from .parallel.multihost import (
     multihost_fit_pairs,
     multihost_sharded_fit_pairs,
 )
-from .utils.profiling import PhaseTimings
+from .utils.profiling import PhaseTimings, span
 from .validation import (
     StringGrouperNotFitException,
     resolve_device,
@@ -124,7 +124,9 @@ class StringGrouper:
         _warn_legacy_kwargs(kwargs)
         self._config: StringGrouperConfig = StringGrouperConfig(**kwargs)
         #: per-phase wall times of the most recent fit, plus the matcher's
-        #: stats as ``match.<name>`` (float stats rounded to 3 places).
+        #: stats as ``match.<name>`` (float stats rounded to 3 places); the
+        #: output frames that get_matches / get_groups build after it add
+        #: up under ``frame``.
         self.timings = PhaseTimings()
 
         self._set_data(master, duplicates, master_id, duplicates_id)
@@ -132,10 +134,13 @@ class StringGrouper:
 
     # ------------------------------------------------------------------ data
     def _set_data(self, master, duplicates=None, master_id=None, duplicates_id=None):
-        self.master = master
-        self.duplicates = duplicates
-        validate_input_data_combination(duplicates, master_id, duplicates_id)
-        validate_id_data(master, duplicates, master_id, duplicates_id)
+        # the range sg.validate: the check of every input string runs on
+        # the host before the fit, in time proportional to the lists
+        with span("validate"):
+            self.master = master
+            self.duplicates = duplicates
+            validate_input_data_combination(duplicates, master_id, duplicates_id)
+            validate_id_data(master, duplicates, master_id, duplicates_id)
         self._master_id = master_id
         self._duplicates_id = duplicates_id
         self._right_Series = self._master if self._duplicates is None else self._duplicates
@@ -377,27 +382,28 @@ class StringGrouper:
         include_zeroes: Optional[bool] = None,
     ) -> pd.DataFrame:
         """All matches with similarities (reference string_grouper.py:443-518)."""
-        if ignore_index is None:
-            ignore_index = self._config.ignore_index
-        if include_zeroes is None:
-            include_zeroes = self._config.include_zeroes
-        if self._config.min_similarity > 0 or not include_zeroes:
-            matches_list = self._matches_list
-        else:
-            non_matches = self._get_non_matches_list()
-            matches_list = (
-                self._matches_list
-                if non_matches.empty
-                else pd.concat([self._matches_list, non_matches], axis=0, ignore_index=True)
+        with self.timings.phase("frame"):
+            if ignore_index is None:
+                ignore_index = self._config.ignore_index
+            if include_zeroes is None:
+                include_zeroes = self._config.include_zeroes
+            if self._config.min_similarity > 0 or not include_zeroes:
+                matches_list = self._matches_list
+            else:
+                non_matches = self._get_non_matches_list()
+                matches_list = (
+                    self._matches_list
+                    if non_matches.empty
+                    else pd.concat([self._matches_list, non_matches], axis=0, ignore_index=True)
+                )
+            return assemble_matches(
+                self._master,
+                self._duplicates,
+                self._master_id,
+                self._duplicates_id,
+                matches_list,
+                ignore_index,
             )
-        return assemble_matches(
-            self._master,
-            self._duplicates,
-            self._master_id,
-            self._duplicates_id,
-            matches_list,
-            ignore_index,
-        )
 
     @validate_is_fit
     def get_groups(
@@ -407,28 +413,29 @@ class StringGrouper:
     ) -> Union[pd.DataFrame, pd.Series]:
         """Group representatives (self-join) or nearest matches (cross-join)
         (reference string_grouper.py:520-544)."""
-        if ignore_index is None:
-            ignore_index = self._config.ignore_index
-        if self._duplicates is None:
-            return assemble_groups(
+        with self.timings.phase("frame"):
+            if ignore_index is None:
+                ignore_index = self._config.ignore_index
+            if self._duplicates is None:
+                return assemble_groups(
+                    self._master,
+                    self._master_id,
+                    self._matches_list,
+                    ignore_index,
+                    self._config.group_rep,
+                    self._device,
+                )
+            if replace_na is None:
+                replace_na = self._config.replace_na
+            return assemble_nearest_matches(
                 self._master,
+                self._duplicates,
                 self._master_id,
+                self._duplicates_id,
                 self._matches_list,
                 ignore_index,
-                self._config.group_rep,
-                self._device,
+                replace_na,
             )
-        if replace_na is None:
-            replace_na = self._config.replace_na
-        return assemble_nearest_matches(
-            self._master,
-            self._duplicates,
-            self._master_id,
-            self._duplicates_id,
-            self._matches_list,
-            ignore_index,
-            replace_na,
-        )
 
     def _get_non_matches_list(self) -> pd.DataFrame:
         """Zero-similarity completion (reference string_grouper.py:765-781)."""

@@ -42,7 +42,6 @@ from __future__ import annotations
 import logging
 import os
 import threading
-import time as _time
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from typing import Dict, Optional
@@ -51,6 +50,7 @@ import numpy as np
 import torch
 
 from ..corpus.tfidf import EllMatrix
+from ..utils.profiling import span
 from ..validation import resolve_device
 from .kernels import (
     _KNUTH,
@@ -1080,25 +1080,27 @@ def _finish_rows(wire, ub_last, cols2, m, m_p, budget, n_right_p, n_right,
                  ready):
     """Download half of a (possibly deferred) hot-row re-match: one transfer
     carrying metadata + the compacted stream when it fit the budget, else
-    the full candidate matrix."""
-    bound_h = None
-    if wire is not None:
-        wire_h = _to_host(wire, ready)
-        meta_w, flat_w = _split_wire(wire_h, True, budget, n_right_p)
-        meta_h = meta_w.reshape(2, -1)
-        bound_h = meta_h[0].view(np.float32)[:m]
-        n_i_h = meta_h[1]
-        total = int(n_i_h.sum())
-        if total <= budget:
-            flat_h = _download_cols(flat_w, total, n_right_p)
-            rows_l = np.repeat(np.arange(m_p, dtype=np.int64), n_i_h)
-            keep = (rows_l < m) & (flat_h < n_right)
-            return rows_l[keep], flat_h[keep], bound_h
-    if bound_h is None:
-        bound_h = _to_host(ub_last, ready).reshape(-1)[:m]
-    cols_h = _to_host(cols2, ready)[:m]
-    rows_pos, cols_f = _pairs_from_ship(cols_h, n_right)
-    return rows_pos, cols_f, bound_h
+    the full candidate matrix (the range ``sg.match.esc_download``, on the
+    thread that downloads)."""
+    with span("match.esc_download"):
+        bound_h = None
+        if wire is not None:
+            wire_h = _to_host(wire, ready)
+            meta_w, flat_w = _split_wire(wire_h, True, budget, n_right_p)
+            meta_h = meta_w.reshape(2, -1)
+            bound_h = meta_h[0].view(np.float32)[:m]
+            n_i_h = meta_h[1]
+            total = int(n_i_h.sum())
+            if total <= budget:
+                flat_h = _download_cols(flat_w, total, n_right_p)
+                rows_l = np.repeat(np.arange(m_p, dtype=np.int64), n_i_h)
+                keep = (rows_l < m) & (flat_h < n_right)
+                return rows_l[keep], flat_h[keep], bound_h
+        if bound_h is None:
+            bound_h = _to_host(ub_last, ready).reshape(-1)[:m]
+        cols_h = _to_host(cols2, ready)[:m]
+        rows_pos, cols_f = _pairs_from_ship(cols_h, n_right)
+        return rows_pos, cols_f, bound_h
 
 
 def _corpus_match(
@@ -1544,7 +1546,7 @@ def adaptive_topn(
         stats = {}
     stats.update(
         p1_wait=0.0, rescore=0.0, select=0.0, esc_wait=0.0,
-        rounds=0, pairs_scored=0,
+        rescore_wait=0.0, rounds=0, pairs_scored=0,
     )
 
     def split_jobs(idx, tmax, counts, c):
@@ -1590,12 +1592,11 @@ def adaptive_topn(
         # rows re-matched per escalation rung: round and extraction width
         key = f"esc_rows_r{rnd}_kt{kt_use}"
         stats[key] = stats.get(key, 0) + len(g)
-        t0 = _time.perf_counter()
-        fin = phase1_run_rows(
-            g, effective_threshold(min_similarity), c_big, kt_use,
-            budget_hint=int(counts[g].sum()), defer=True,
-        )
-        stats["esc_wait"] += _time.perf_counter() - t0
+        with span("match.esc_dispatch", stats, "esc_wait"):
+            fin = phase1_run_rows(
+                g, effective_threshold(min_similarity), c_big, kt_use,
+                budget_hint=int(counts[g].sum()), defer=True,
+            )
         return g, fin
 
     def collect(c, kt, stream_escalate):
@@ -1646,23 +1647,25 @@ def adaptive_topn(
             """Exact rescore + per-segment selection -- native calls that
             release the GIL, run on the scoring worker so the consumer
             thread goes straight back to blocking on the next segment's
-            download (wire/device wait and host scoring overlap)."""
-            t0 = _time.perf_counter()
-            sims_g = rescore(r_g, cl_g)
-            t_res = _time.perf_counter() - t0
-            t0 = _time.perf_counter()
-            sel = _select_topn(
-                r_g - base, cl_g, sims_g, m_g, min_similarity, max_n_eff
-            )
-            return sel, len(r_g), t_res, _time.perf_counter() - t0
+            download (wire/device wait and host scoring overlap).  Its
+            seconds go back to the calling thread with the result."""
+            took: dict = {}
+            with span("match.rescore", took, "rescore"):
+                sims_g = rescore(r_g, cl_g)
+            with span("match.select", took, "select"):
+                sel = _select_topn(
+                    r_g - base, cl_g, sims_g, m_g, min_similarity, max_n_eff
+                )
+            return sel, len(r_g), took
 
         def resolve(fut, base, m_g, bound_g):
             """Fold one finished scoring task into the driver state (main
             thread: escalation dispatch and stats stay unsynchronized)."""
             nonlocal esc_cnt
-            (r_s, c_s, s_s, kq_g, rc_g), n_p, t_res, t_sel = fut.result()
-            stats["rescore"] += t_res
-            stats["select"] += t_sel
+            with span("match.rescore_wait", stats, "rescore_wait"):
+                (r_s, c_s, s_s, kq_g, rc_g), n_p, took = fut.result()
+            for k, v in took.items():
+                stats[k] += v
             stats["pairs_scored"] += n_p
             sel_r.append(r_s + base)
             sel_c.append(c_s)
@@ -1684,9 +1687,8 @@ def adaptive_topn(
         inflight: deque = deque()
         stream = iter(phase1_run(effective_threshold(min_similarity), c, kt))
         while True:
-            t0 = _time.perf_counter()
-            item = next(stream, None)
-            stats["p1_wait"] += _time.perf_counter() - t0
+            with span("match.p1_wait", stats, "p1_wait"):
+                item = next(stream, None)
             if item is None:
                 break
             r_g, cl_g, base, m_g, bound_g, counts_g, tmax_g, mc_g = item
@@ -1737,13 +1739,11 @@ def adaptive_topn(
         touched = np.zeros(n_left, dtype=bool)
         parts_r, parts_c, parts_s = [], [], []
         for g, fin in pending:
-            t0 = _time.perf_counter()
-            rows_pos, g_cols, g_bound = fin()
-            stats["esc_wait"] += _time.perf_counter() - t0
+            with span("match.esc_finish", stats, "esc_wait"):
+                rows_pos, g_cols, g_bound = fin()
             g_rows = g.astype(np.int64)[rows_pos]
-            t0 = _time.perf_counter()
-            parts_s.append(rescore(g_rows, g_cols))
-            stats["rescore"] += _time.perf_counter() - t0
+            with span("match.rescore", stats, "rescore"):
+                parts_s.append(rescore(g_rows, g_cols))
             parts_r.append(g_rows)
             parts_c.append(g_cols)
             bound[g] = g_bound
@@ -1753,11 +1753,10 @@ def adaptive_topn(
         sub_cols = np.concatenate(parts_c)
         sub_sims = np.concatenate(parts_s)
         stats["pairs_scored"] += len(sub_rows)
-        t0 = _time.perf_counter()
-        r2, c2, s2, kq2, rc2 = _select_topn(
-            sub_rows, sub_cols, sub_sims, n_left, min_similarity, max_n_eff
-        )
-        stats["select"] += _time.perf_counter() - t0
+        with span("match.select", stats, "select"):
+            r2, c2, s2, kq2, rc2 = _select_topn(
+                sub_rows, sub_cols, sub_sims, n_left, min_similarity, max_n_eff
+            )
         keep_sel = ~touched[rows_s]
         rows_s = np.concatenate([rows_s[keep_sel], r2])
         cols_s = np.concatenate([cols_s[keep_sel], c2])
@@ -2231,53 +2230,51 @@ def match_with_collapse(
         z = np.zeros(0, dtype=np.int64)
         return MatchPairs(rows=z, cols=z, sims=np.zeros(0),
                           true_max_n_matches=0, stats={})
-    t_collapse0 = _time.perf_counter()
-    if device_encode_enabled():
-        src_l = getattr(left, "device_src", None)
-        refined = _clean_codes(src_l) if src_l is not None else None
-        if refined is not None:
-            left_codes = refined
-        if not is_self:
-            src_r = getattr(right_m, "device_src", None)
-            refined_r = (
-                _clean_refined_codes(src_r) if src_r is not None else None
-            )
-            if refined_r is not None:
-                right_codes = refined_r
-    dedup = (
-        left_codes is not None
-        and len(left_codes) == left.n_rows
-        and (
-            is_self
-            or (
-                right_codes is not None
-                and len(right_codes) == right_m.n_rows
-            )
-        )
-    )
     stats: dict = {}
-    if dedup:
-        codes_l, first_l, perm_l, starts_l, counts_l = _group_positions(
-            left_codes
+    with span("match.collapse", stats, "collapse"):
+        if device_encode_enabled():
+            src_l = getattr(left, "device_src", None)
+            refined = _clean_codes(src_l) if src_l is not None else None
+            if refined is not None:
+                left_codes = refined
+            if not is_self:
+                src_r = getattr(right_m, "device_src", None)
+                refined_r = (
+                    _clean_refined_codes(src_r) if src_r is not None else None
+                )
+                if refined_r is not None:
+                    right_codes = refined_r
+        dedup = (
+            left_codes is not None
+            and len(left_codes) == left.n_rows
+            and (
+                is_self
+                or (
+                    right_codes is not None
+                    and len(right_codes) == right_m.n_rows
+                )
+            )
         )
-        if is_self:
-            codes_r, first_r, perm_r, starts_r, counts_r = (
-                codes_l, first_l, perm_l, starts_l, counts_l
+        if dedup:
+            codes_l, first_l, perm_l, starts_l, counts_l = _group_positions(
+                left_codes
             )
-        else:
-            codes_r, first_r, perm_r, starts_r, counts_r = _group_positions(
-                right_codes
-            )
-        u_left, u_right = len(first_l), len(first_r)
-        # Only pay the expansion machinery when something actually
-        # collapses.
-        dedup = u_left < left.n_rows or u_right < right_m.n_rows
-    collapse_s = _time.perf_counter() - t_collapse0
+            if is_self:
+                codes_r, first_r, perm_r, starts_r, counts_r = (
+                    codes_l, first_l, perm_l, starts_l, counts_l
+                )
+            else:
+                codes_r, first_r, perm_r, starts_r, counts_r = _group_positions(
+                    right_codes
+                )
+            u_left, u_right = len(first_l), len(first_r)
+            # Only pay the expansion machinery when something actually
+            # collapses.
+            dedup = u_left < left.n_rows or u_right < right_m.n_rows
 
     if not dedup:
-        t0 = _time.perf_counter()
-        run, run_rows, c_cap, tile = phase1_factory(None, None)
-        setup_s = _time.perf_counter() - t0
+        with span("match.p1_setup", stats, "p1_setup"):
+            run, run_rows, c_cap, tile = phase1_factory(None, None)
         c0 = initial_cand_c(min_similarity, max_n, right_m.n_rows, c_cap)
         kt0 = initial_k_tile(min_similarity, tile, c0)
         pairs = adaptive_topn(
@@ -2286,14 +2283,11 @@ def match_with_collapse(
             phase1_run_rows=run_rows, score_dtype=score_dtype,
             stats=stats,
         )
-        stats["collapse"] = collapse_s
-        stats["p1_setup"] = setup_s
         pairs.stats = stats
         _publish_stats(stats)
         return pairs
-    t0 = _time.perf_counter()
-    run, run_rows, c_cap, tile = phase1_factory(first_l, first_r)
-    setup_s = _time.perf_counter() - t0
+    with span("match.p1_setup", stats, "p1_setup"):
+        run, run_rows, c_cap, tile = phase1_factory(first_l, first_r)
     c0 = initial_cand_c(min_similarity, max_n, u_right, c_cap)
     kt0 = initial_k_tile(min_similarity, tile, c0)
     pairs_u = adaptive_topn(
@@ -2309,15 +2303,12 @@ def match_with_collapse(
         if np.dtype(score_dtype) == np.float32
         else min_similarity
     )
-    stats["collapse"] = collapse_s
-    stats["p1_setup"] = setup_s
-    t0 = _time.perf_counter()
-    pairs = _expand_dedup(
-        pairs_u, codes_l, perm_r, starts_r, counts_r,
-        u_left, left.n_rows, min_sim_sel,
-        min(max_n, right_m.n_rows),
-    )
-    stats["expand"] = _time.perf_counter() - t0
+    with span("match.expand", stats, "expand"):
+        pairs = _expand_dedup(
+            pairs_u, codes_l, perm_r, starts_r, counts_r,
+            u_left, left.n_rows, min_sim_sel,
+            min(max_n, right_m.n_rows),
+        )
     pairs.stats = stats
     _publish_stats(stats)
     return pairs
@@ -2377,13 +2368,12 @@ def topn_cosine_matches(
             left_sel=ls, right_sel=rs,
         ),
     )
-    t0 = _time.perf_counter()
     stats = pairs.stats
-    if is_self and force_symmetries:
-        fixed = apply_self_join_fixups(pairs, left.n_rows)
-    else:
-        fixed = order_like_reference_csr(pairs)
+    with span("match.fixups", stats, "fixups"):
+        if is_self and force_symmetries:
+            fixed = apply_self_join_fixups(pairs, left.n_rows)
+        else:
+            fixed = order_like_reference_csr(pairs)
     if stats is not None:
-        stats["fixups"] = _time.perf_counter() - t0
         fixed.stats = stats
     return fixed

@@ -68,6 +68,7 @@ from ..ops.matcher import (
     order_like_reference_csr,
     use_fused,
 )
+from ..utils.profiling import span
 from ..validation import resolve_device
 
 __all__ = [
@@ -473,8 +474,6 @@ def distributed_topn_cosine_matches(
     enable the same duplicate-collapse layer as the single-device matcher:
     the collapse and expansion run on this controller, the unique-row scan
     under the mesh."""
-    import time as _time
-
     validate_mesh(mesh)
     is_self = right is None
     right_m = left if is_self else right
@@ -491,13 +490,12 @@ def distributed_topn_cosine_matches(
             left_sel=ls, right_sel=rs,
         ),
     )
-    t0 = _time.perf_counter()
     stats = pairs.stats
-    if is_self and force_symmetries:
-        fixed = apply_self_join_fixups(pairs, left.n_rows)
-    else:
-        fixed = order_like_reference_csr(pairs)
+    with span("match.fixups", stats, "fixups"):
+        if is_self and force_symmetries:
+            fixed = apply_self_join_fixups(pairs, left.n_rows)
+        else:
+            fixed = order_like_reference_csr(pairs)
     if stats is not None:
-        stats["fixups"] = _time.perf_counter() - t0
         fixed.stats = stats
     return fixed

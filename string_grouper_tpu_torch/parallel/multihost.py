@@ -79,7 +79,6 @@ a hang.
 from __future__ import annotations
 
 import os
-import time
 from collections import Counter
 from dataclasses import replace
 from typing import Optional, Tuple
@@ -111,6 +110,7 @@ from ..ops.matcher import (
     use_fused,
 )
 from ..ops.rescore import rescore_pairs_fp64
+from ..utils.profiling import span
 from ..validation import resolve_device
 from .distributed import (
     _local_block,
@@ -263,10 +263,11 @@ def _replicate_rows(block: torch.Tensor, counts: np.ndarray,
     """``(n_rows, d)`` on ``block``'s device: every rank's first
     ``counts[rank]`` rows of its ``block`` in rank order, zero rows after
     (the JAX tier's replicated gather of a sharded device array), on the
-    route of :func:`_route`."""
-    if _route(block.device) == "direct":
-        return _replicate_direct(block, counts, n_rows)
-    return _replicate_host(block, counts, n_rows)
+    route of :func:`_route` (the range ``sg.match.mh_replicate``)."""
+    with span("match.mh_replicate"):
+        if _route(block.device) == "direct":
+            return _replicate_direct(block, counts, n_rows)
+        return _replicate_host(block, counts, n_rows)
 
 
 def _replicate_direct(block, counts, n_rows):
@@ -342,43 +343,45 @@ def _exchange_rows(cols: torch.Tensor, bound: torch.Tensor,
     on the host route.  Each rank receives its rows' slices from every
     peer: the columns concatenate along the width in rank order, bound and
     tmax reduce by an elementwise max.  Returns host ``(cols, bound,
-    tmax)`` of this rank's rows, downloaded once."""
-    rank, size = _world()
-    owners = np.flatnonzero(counts)
-    lo = int(starts[owners[0]]) if len(owners) else 0
-    total = int(counts.sum())
-    if np.any((counts > 0) & (starts != lo + np.cumsum(counts) - counts)):
-        raise ValueError(
-            f"the ranks' rows are not contiguous in rank order: starts "
-            f"{starts.tolist()}, counts {counts.tolist()}"
-        )
-    w = cols.shape[1]
-    route = _route(cols.device)
-    wire = torch.cat([
-        cols[lo:lo + total].to(torch.int32),
-        bound[lo:lo + total, None].view(torch.int32),
-        tmax[lo:lo + total, None].to(torch.int32),
-    ], 1)
-    mine = int(counts[rank])
-    recv = wire
-    if dist.is_available() and dist.is_initialized():
-        if route == "direct":
-            _check_direct_device(wire.device)
-        else:
-            wire = wire.cpu()
-        recv = wire.new_empty((size * mine, w + 2))
-        _all_to_all(recv, wire, counts,
-                    None if route == "direct" else _host_group())
-        ROUTE_CALLS[route, "exchange"] += 1
-    recv = recv.view(size, mine, w + 2)
-    flat = torch.cat([
-        recv[:, :, :w].permute(1, 0, 2).reshape(-1),
-        recv[:, :, w].view(torch.float32).amax(0).view(torch.int32),
-        recv[:, :, w + 1].amax(0),
-    ]).cpu().numpy()
-    n = mine * size * w
-    return (flat[:n].reshape(mine, size * w), flat[n:n + mine].view(np.float32),
-            flat[n + mine:])
+    tmax)`` of this rank's rows, downloaded once (the range
+    ``sg.match.mh_exchange``)."""
+    with span("match.mh_exchange"):
+        rank, size = _world()
+        owners = np.flatnonzero(counts)
+        lo = int(starts[owners[0]]) if len(owners) else 0
+        total = int(counts.sum())
+        if np.any((counts > 0) & (starts != lo + np.cumsum(counts) - counts)):
+            raise ValueError(
+                f"the ranks' rows are not contiguous in rank order: starts "
+                f"{starts.tolist()}, counts {counts.tolist()}"
+            )
+        w = cols.shape[1]
+        route = _route(cols.device)
+        wire = torch.cat([
+            cols[lo:lo + total].to(torch.int32),
+            bound[lo:lo + total, None].view(torch.int32),
+            tmax[lo:lo + total, None].to(torch.int32),
+        ], 1)
+        mine = int(counts[rank])
+        recv = wire
+        if dist.is_available() and dist.is_initialized():
+            if route == "direct":
+                _check_direct_device(wire.device)
+            else:
+                wire = wire.cpu()
+            recv = wire.new_empty((size * mine, w + 2))
+            _all_to_all(recv, wire, counts,
+                        None if route == "direct" else _host_group())
+            ROUTE_CALLS[route, "exchange"] += 1
+        recv = recv.view(size, mine, w + 2)
+        flat = torch.cat([
+            recv[:, :, :w].permute(1, 0, 2).reshape(-1),
+            recv[:, :, w].view(torch.float32).amax(0).view(torch.int32),
+            recv[:, :, w + 1].amax(0),
+        ]).cpu().numpy()
+        n = mine * size * w
+        return (flat[:n].reshape(mine, size * w),
+                flat[n:n + mine].view(np.float32), flat[n + mine:])
 
 
 def _phase1_scan(a_rows: dict, b_slots: list, thr: float,
@@ -913,256 +916,250 @@ def multihost_sharded_fit_pairs(
     every rank): the rank's right block splits into one sub-block per slot
     and the geometry is the JAX tier's at ``n_dev = world x k``."""
     t: dict = {}
-    t0 = time.perf_counter()
-    is_self = duplicates is None
-    pid, nproc = _world()
-    slots = _rank_slots(config.mesh, resolve_device(config.device))
-    k = len(slots)
-    n_dev = nproc * k
-    n_m = len(master)
-    right_series = master if is_self else duplicates
-    n_right = len(right_series)
-    n_docs = n_m + (0 if is_self else n_right)
+    with span("match.mh_encode_s", t, "encode_s"):
+        is_self = duplicates is None
+        pid, nproc = _world()
+        slots = _rank_slots(config.mesh, resolve_device(config.device))
+        k = len(slots)
+        n_dev = nproc * k
+        n_m = len(master)
+        right_series = master if is_self else duplicates
+        n_right = len(right_series)
+        n_docs = n_m + (0 if is_self else n_right)
 
-    min_similarity = config.min_similarity
-    if np.dtype(config.tfidf_matrix_dtype) == np.float32:
-        # Reference thresholds in the matrix dtype (adaptive_topn does the
-        # same rounding on the single-device path).
-        min_similarity = float(np.float32(min_similarity))
-    max_n = n_right if config.max_n_matches is None else config.max_n_matches
-    max_n_eff = min(max_n, n_right)
+        min_similarity = config.min_similarity
+        if np.dtype(config.tfidf_matrix_dtype) == np.float32:
+            # Reference thresholds in the matrix dtype (adaptive_topn does the
+            # same rounding on the single-device path).
+            min_similarity = float(np.float32(min_similarity))
+        max_n = (n_right if config.max_n_matches is None
+                 else config.max_n_matches)
+        max_n_eff = min(max_n, n_right)
 
-    # --- encode: ONLY this rank's slices of each side.
-    _per_l, llo, lhi = _shard_bounds(n_m, nproc, pid)
-    _per_r, rlo, rhi = _shard_bounds(n_right, nproc, pid)
-    local_strings = list(master.iloc[llo:lhi])
-    n_ll = lhi - llo
-    if not is_self:
-        local_strings += list(duplicates.iloc[rlo:rhi])
-    local_ell, _idf, n_docs_g = multihost_encode_shard(local_strings, config)
-    if n_docs_g != n_docs:
-        raise AssertionError(
-            f"global document count mismatch: slices sum to {n_docs_g} "
-            f"but the full corpus has {n_docs} rows"
+        # --- encode: ONLY this rank's slices of each side.
+        _per_l, llo, lhi = _shard_bounds(n_m, nproc, pid)
+        _per_r, rlo, rhi = _shard_bounds(n_right, nproc, pid)
+        local_strings = list(master.iloc[llo:lhi])
+        n_ll = lhi - llo
+        if not is_self:
+            local_strings += list(duplicates.iloc[rlo:rhi])
+        local_ell, _idf, n_docs_g = multihost_encode_shard(
+            local_strings, config)
+        if n_docs_g != n_docs:
+            raise AssertionError(
+                f"global document count mismatch: slices sum to {n_docs_g} "
+                f"but the full corpus has {n_docs} rows"
+            )
+        left_ell = _slice_ell(local_ell, 0, n_ll)
+        right_ell = (
+            left_ell if is_self
+            else _slice_ell(local_ell, n_ll, n_ll + (rhi - rlo))
         )
-    left_ell = _slice_ell(local_ell, 0, n_ll)
-    right_ell = (
-        left_ell if is_self
-        else _slice_ell(local_ell, n_ll, n_ll + (rhi - rlo))
-    )
-    left_counts = _shard_counts(n_m, nproc)
-    right_counts = _shard_counts(n_right, nproc)
-    left_starts = np.concatenate(([0], np.cumsum(left_counts))).astype(
-        np.int64
-    )
-    t["encode_s"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
+        left_counts = _shard_counts(n_m, nproc)
+        right_counts = _shard_counts(n_right, nproc)
+        left_starts = np.concatenate(([0], np.cumsum(left_counts))).astype(
+            np.int64
+        )
 
     if n_m == 0 or n_right == 0 or max_n_eff <= 0:
         t["match_s"] = 0.0
         return _finish(_empty_pairs(), 0, n_m, is_self, config, t)
-
-    # --- phase 1: a right hash block per rank (one sub-block per slot),
-    # the left hash replicated onto every slot device.
-    hash_dim = config.hash_dim
-    tile = min(
-        config.right_tile,
-        max(8, -(-max(-(-n_right // n_dev), 8) // 8) * 8),
-    )
-    per_dev_r = -(-max(-(-n_right // n_dev), 8) // tile) * tile
-    pad_local_r = per_dev_r * k
-    if int(right_counts.max()) > pad_local_r:
-        raise ValueError(
-            f"right shard of {int(right_counts.max())} rows exceeds the "
-            f"per-rank padded capacity {pad_local_r}"
+    with span("match.mh_p1_s", t, "p1_s"):
+        # --- phase 1: a right hash block per rank (one sub-block per slot),
+        # the left hash replicated onto every slot device.
+        hash_dim = config.hash_dim
+        tile = min(
+            config.right_tile,
+            max(8, -(-max(-(-n_right // n_dev), 8) // 8) * 8),
         )
-    local_ell.wait_ready()
-    b_local = build_hash_matrix(right_ell, pad_local_r, hash_dim, slots[0])
-    b_slots = _slot_blocks(b_local, slots)
-
-    # Left scan-chunk rows: the single-device chunk on the card, tiny on
-    # the CPU where per-step work must stay small.
-    chunk = min(4096 if slots[0].type == "cuda" else 8, per_dev_r)
-    pad_local_l = -(-max(-(-n_m // n_dev), 8) // chunk) * chunk * k
-    if int(left_counts.max()) > pad_local_l:
-        raise ValueError(
-            f"left shard of {int(left_counts.max())} rows exceeds the "
-            f"per-rank padded capacity {pad_local_l}"
-        )
-    a_local = (
-        b_local if is_self and pad_local_l == pad_local_r
-        else build_hash_matrix(left_ell, pad_local_l, hash_dim, slots[0])
-    )
-    n_left_pad = -(-n_m // chunk) * chunk
-    a_dense = _slot_copies(
-        _replicate_rows(a_local, left_counts, n_left_pad), b_slots
-    )
-    del b_local, a_local
-
-    # Candidate width is CAPPED: the per-slot candidate matrix is
-    # (n_left_pad, cand_c) int32, uncapped it scales with the corpus
-    # itself.  Rows whose top-C truncates report a finite drop bound and
-    # settle in the ladder, so the cap never costs exactness.
-    cand_c = min(
-        initial_cand_c(min_similarity, max_n_eff, n_right, per_dev_r),
-        _SHARDED_CAND_CAP,
-        per_dev_r,
-    )
-    thr = float(effective_threshold(min_similarity))
-    # Initial extraction width: the single-device heuristic (closed-form
-    # kt = 2 on thresholded corpora); the ladder restores completeness.
-    kt0 = initial_k_tile(min_similarity, tile, cand_c)
-    cols_my, bound_my, tmax_my = _phase1_scan(
-        a_dense, b_slots, thr, left_starts[:-1], left_counts, tile=tile,
-        chunk=chunk, cand_c=cand_c, k_tile=kt0,
-    )
-    t["p1_s"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-
-    # --- phase 2: exact rescore over the right-shard ring + selection.
-    right_starts = np.concatenate(([0], np.cumsum(right_counts))).astype(
-        np.int64
-    )
-
-    def map_cols(cols_h: np.ndarray) -> np.ndarray:
-        """Padded rank-block right space -> global right ids."""
-        proc_of = np.minimum(cols_h // pad_local_r, nproc - 1)
-        within = cols_h - proc_of * pad_local_r
-        valid = (cols_h >= 0) & (within < right_counts[proc_of])
-        return np.where(valid, right_starts[proc_of] + within, -1)
-
-    ring = _RingRescorer(
-        left_ell, right_ell, right_counts, config.tfidf_matrix_dtype
-    )
-
-    def score_select(cols_h: np.ndarray, row_ids_local: np.ndarray):
-        rows_pos, cols_f = _pairs_from_ship(map_cols(cols_h), n_right)
-        rows_l = row_ids_local[rows_pos]
-        sims = ring.score(rows_l, cols_f)
-        return _select_topn(
-            rows_l, cols_f, sims, n_ll, min_similarity, max_n_eff
-        )
-
-    r_s, c_s, s_s, kept_q, row_cut = score_select(
-        cols_my, np.arange(n_ll, dtype=np.int64)
-    )
-    t["rescore_s"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-
-    # --- escalation LADDER: unsafe rows re-match at widening
-    # (cand, k_tile) stages, ending at the provably complete width
-    # (cand = per-device rows, k_tile = tile).  The unsafe union gathers per
-    # stage, stage continuation is a global condition, and every rank runs
-    # the identical batch sequence; each batch's per-tile extraction stack
-    # stays (n_tiles, batch, kt) instead of (n_tiles, corpus, tile).
-    qual_low = max(min_similarity, 0.0)
-    unsafe = escalation_unsafe(
-        bound_my, kept_q, row_cut, qual_low, max_n_eff
-    )
-    # Rung plan: per-tile widths clamp to at least kt0, candidates widen
-    # toward the per-device cap, the complete width is always last.  Rows are
-    # ASSIGNED to the first rung whose kt covers their device-reported
-    # per-tile maximum (tmax is a property of the data), so no row climbs a
-    # rung that provably cannot settle it.
-    stages = []
-    if kt0 < tile or cand_c < per_dev_r:
-        prev = (cand_c, kt0)
-        for mid_cand, mid_kt in (
-            (min(max(cand_c * 4, 256), per_dev_r), min(max(8, kt0), tile)),
-            (
-                min(max(cand_c * 16, 1024), per_dev_r),
-                min(max(32, kt0), tile),
-            ),
-        ):
-            wider = mid_cand > prev[0] or mid_kt > prev[1]
-            if wider and (mid_cand < per_dev_r or mid_kt < tile):
-                stages.append((mid_cand, mid_kt))
-                prev = (mid_cand, mid_kt)
-    stages.append((per_dev_r, tile))
-    n_tiles_dev = max(per_dev_r // tile, 1)
-    n_uns0 = _allgather_host(np.array([int(unsafe.sum())], np.int64))
-    t["esc_rows"] = int(n_uns0.sum())  # unique escalated rows, all ranks
-    touched_all = np.zeros(n_ll, dtype=bool)
-    for si, (cand_s, kt_s) in enumerate(stages):
-        complete = cand_s >= per_dev_r and kt_s >= tile
-        eligible = unsafe if complete else (unsafe & (tmax_my <= kt_s))
-        # Per-stage scan-chunk rows: the tile scan stacks (n_tiles, chunk,
-        # kt) intermediates, so wide-kt stages take narrow chunks.
-        chunk_esc = max(
-            8,
-            min(
-                512,
-                (1 << 29) // max(16 * n_tiles_dev * kt_s, 1) // 8 * 8,
-            ),
-        )
-        my_unsafe = np.flatnonzero(eligible).astype(np.int64) + llo
-        n_uns = _allgather_host(np.array([len(my_unsafe)], np.int64))
-        if int(n_uns.max()) == 0:
-            continue  # later stages may still own rows (tmax > this kt)
-        t[f"esc_s{si}_kt{kt_s}_rows"] = int(n_uns.sum())
-        t_stage0 = time.perf_counter()
-        union = np.unique(np.concatenate(_allgather_ragged(my_unsafe)))
-        # Batch rows so the per-dispatch extraction stack (~2 copies of
-        # (n_tiles, batch, kt) f32 + i32) stays under ~0.5 GB.
-        per_row_b = 16 * n_tiles_dev * kt_s + 4 * n_dev * cand_s
-        batch = max(
-            chunk_esc,
-            (1 << 29) // max(per_row_b, 1) // chunk_esc * chunk_esc,
-        )
-        cols_parts, bound_parts, rows_parts = [], [], []
-        for b0 in range(0, len(union), batch):
-            ub = union[b0:b0 + batch]
-            u_starts, u_counts = _batch_owners(ub, left_starts)
-            cols_b, bound_b, _tmax_b = _phase1_scan(
-                _rows_of(a_dense, ub), b_slots, thr,
-                u_starts, u_counts, tile=tile, chunk=chunk_esc,
-                cand_c=cand_s, k_tile=kt_s,
+        per_dev_r = -(-max(-(-n_right // n_dev), 8) // tile) * tile
+        pad_local_r = per_dev_r * k
+        if int(right_counts.max()) > pad_local_r:
+            raise ValueError(
+                f"right shard of {int(right_counts.max())} rows exceeds the "
+                f"per-rank padded capacity {pad_local_r}"
             )
-            if complete and not _all_ranks_agree(
-                not np.isfinite(bound_b).any()
+        local_ell.wait_ready()
+        b_local = build_hash_matrix(right_ell, pad_local_r, hash_dim, slots[0])
+        b_slots = _slot_blocks(b_local, slots)
+
+        # Left scan-chunk rows: the single-device chunk on the card, tiny on
+        # the CPU where per-step work must stay small.
+        chunk = min(4096 if slots[0].type == "cuda" else 8, per_dev_r)
+        pad_local_l = -(-max(-(-n_m // n_dev), 8) // chunk) * chunk * k
+        if int(left_counts.max()) > pad_local_l:
+            raise ValueError(
+                f"left shard of {int(left_counts.max())} rows exceeds the "
+                f"per-rank padded capacity {pad_local_l}"
+            )
+        a_local = (
+            b_local if is_self and pad_local_l == pad_local_r
+            else build_hash_matrix(left_ell, pad_local_l, hash_dim, slots[0])
+        )
+        n_left_pad = -(-n_m // chunk) * chunk
+        a_dense = _slot_copies(
+            _replicate_rows(a_local, left_counts, n_left_pad), b_slots
+        )
+        del b_local, a_local
+
+        # Candidate width is CAPPED: the per-slot candidate matrix is
+        # (n_left_pad, cand_c) int32, uncapped it scales with the corpus
+        # itself.  Rows whose top-C truncates report a finite drop bound and
+        # settle in the ladder, so the cap never costs exactness.
+        cand_c = min(
+            initial_cand_c(min_similarity, max_n_eff, n_right, per_dev_r),
+            _SHARDED_CAND_CAP,
+            per_dev_r,
+        )
+        thr = float(effective_threshold(min_similarity))
+        # Initial extraction width: the single-device heuristic (closed-form
+        # kt = 2 on thresholded corpora); the ladder restores completeness.
+        kt0 = initial_k_tile(min_similarity, tile, cand_c)
+        cols_my, bound_my, tmax_my = _phase1_scan(
+            a_dense, b_slots, thr, left_starts[:-1], left_counts, tile=tile,
+            chunk=chunk, cand_c=cand_c, k_tile=kt0,
+        )
+    with span("match.mh_rescore_s", t, "rescore_s"):
+        # --- phase 2: exact rescore over the right-shard ring + selection.
+        right_starts = np.concatenate(([0], np.cumsum(right_counts))).astype(
+            np.int64
+        )
+
+        def map_cols(cols_h: np.ndarray) -> np.ndarray:
+            """Padded rank-block right space -> global right ids."""
+            proc_of = np.minimum(cols_h // pad_local_r, nproc - 1)
+            within = cols_h - proc_of * pad_local_r
+            valid = (cols_h >= 0) & (within < right_counts[proc_of])
+            return np.where(valid, right_starts[proc_of] + within, -1)
+
+        ring = _RingRescorer(
+            left_ell, right_ell, right_counts, config.tfidf_matrix_dtype
+        )
+
+        def score_select(cols_h: np.ndarray, row_ids_local: np.ndarray):
+            rows_pos, cols_f = _pairs_from_ship(map_cols(cols_h), n_right)
+            rows_l = row_ids_local[rows_pos]
+            sims = ring.score(rows_l, cols_f)
+            return _select_topn(
+                rows_l, cols_f, sims, n_ll, min_similarity, max_n_eff
+            )
+
+        r_s, c_s, s_s, kept_q, row_cut = score_select(
+            cols_my, np.arange(n_ll, dtype=np.int64)
+        )
+    with span("match.mh_esc_s", t, "esc_s"):
+        # --- escalation LADDER: unsafe rows re-match at widening
+        # (cand, k_tile) stages, ending at the provably complete width
+        # (cand = per-device rows, k_tile = tile).  The unsafe union gathers per
+        # stage, stage continuation is a global condition, and every rank runs
+        # the identical batch sequence; each batch's per-tile extraction stack
+        # stays (n_tiles, batch, kt) instead of (n_tiles, corpus, tile).
+        qual_low = max(min_similarity, 0.0)
+        unsafe = escalation_unsafe(
+            bound_my, kept_q, row_cut, qual_low, max_n_eff
+        )
+        # Rung plan: per-tile widths clamp to at least kt0, candidates widen
+        # toward the per-device cap, the complete width is always last.  Rows
+        # are ASSIGNED to the first rung whose kt covers their device-reported
+        # per-tile maximum (tmax is a property of the data), so no row climbs
+        # a rung that provably cannot settle it.
+        stages = []
+        if kt0 < tile or cand_c < per_dev_r:
+            prev = (cand_c, kt0)
+            for mid_cand, mid_kt in (
+                (min(max(cand_c * 4, 256), per_dev_r), min(max(8, kt0), tile)),
+                (
+                    min(max(cand_c * 16, 1024), per_dev_r),
+                    min(max(32, kt0), tile),
+                ),
             ):
-                raise AssertionError(
-                    "sharded-tier complete-width re-match reported a "
-                    "finite drop bound: the completeness invariant is "
-                    "broken"
-                )
-            if len(cols_b):
-                cols_parts.append(cols_b)
-                bound_parts.append(bound_b)
-                rows_parts.append(
-                    ub[u_starts[pid]:u_starts[pid] + u_counts[pid]] - llo
-                )
-        rows_mine = (
-            np.concatenate(rows_parts) if rows_parts
-            else np.zeros(0, dtype=np.int64)
-        )
-        cols_mine = (
-            np.concatenate(cols_parts) if cols_parts
-            else np.zeros((0, n_dev * cand_s), dtype=np.int32)
-        )
-        # Every rank runs the ring (score_select is collective), even with
-        # zero own rows this stage.
-        r2, c2, s2, kept2, cut2 = score_select(cols_mine, rows_mine)
-        touched = np.zeros(n_ll, dtype=bool)
-        touched[rows_mine] = True
-        touched_all |= touched
-        keep = ~touched[r_s]
-        r_s = np.concatenate([r_s[keep], r2])
-        c_s = np.concatenate([c_s[keep], c2])
-        s_s = np.concatenate([s_s[keep], s2])
-        # This stage's rows settle or re-queue on their NEW bounds and
-        # selection cuts; rows waiting for a wider rung stay unsafe.
-        unsafe[rows_mine] = False
-        if len(rows_mine) and not complete:
-            unsafe[rows_mine] = escalation_unsafe(
-                np.concatenate(bound_parts), kept2[rows_mine],
-                cut2[rows_mine], qual_low, max_n_eff,
+                wider = mid_cand > prev[0] or mid_kt > prev[1]
+                if wider and (mid_cand < per_dev_r or mid_kt < tile):
+                    stages.append((mid_cand, mid_kt))
+                    prev = (mid_cand, mid_kt)
+        stages.append((per_dev_r, tile))
+        n_tiles_dev = max(per_dev_r // tile, 1)
+        n_uns0 = _allgather_host(np.array([int(unsafe.sum())], np.int64))
+        t["esc_rows"] = int(n_uns0.sum())  # unique escalated rows, all ranks
+        touched_all = np.zeros(n_ll, dtype=bool)
+        for si, (cand_s, kt_s) in enumerate(stages):
+            complete = cand_s >= per_dev_r and kt_s >= tile
+            eligible = unsafe if complete else (unsafe & (tmax_my <= kt_s))
+            # Per-stage scan-chunk rows: the tile scan stacks (n_tiles, chunk,
+            # kt) intermediates, so wide-kt stages take narrow chunks.
+            chunk_esc = max(
+                8,
+                min(
+                    512,
+                    (1 << 29) // max(16 * n_tiles_dev * kt_s, 1) // 8 * 8,
+                ),
             )
-        t[f"esc_s{si}_kt{kt_s}_s"] = time.perf_counter() - t_stage0
-    if touched_all.any():
-        order = np.lexsort((c_s, -s_s, r_s))
-        r_s, c_s, s_s = r_s[order], c_s[order], s_s[order]
-    t["esc_s"] = time.perf_counter() - t0
+            my_unsafe = np.flatnonzero(eligible).astype(np.int64) + llo
+            n_uns = _allgather_host(np.array([len(my_unsafe)], np.int64))
+            if int(n_uns.max()) == 0:
+                continue  # later stages may still own rows (tmax > this kt)
+            t[f"esc_s{si}_kt{kt_s}_rows"] = int(n_uns.sum())
+            stage = f"esc_s{si}_kt{kt_s}_s"
+            with span(f"match.mh_{stage}", t, stage):
+                union = np.unique(np.concatenate(_allgather_ragged(my_unsafe)))
+                # Batch rows so the per-dispatch extraction stack (~2 copies of
+                # (n_tiles, batch, kt) f32 + i32) stays under ~0.5 GB.
+                per_row_b = 16 * n_tiles_dev * kt_s + 4 * n_dev * cand_s
+                batch = max(
+                    chunk_esc,
+                    (1 << 29) // max(per_row_b, 1) // chunk_esc * chunk_esc,
+                )
+                cols_parts, bound_parts, rows_parts = [], [], []
+                for b0 in range(0, len(union), batch):
+                    ub = union[b0:b0 + batch]
+                    u_starts, u_counts = _batch_owners(ub, left_starts)
+                    cols_b, bound_b, _tmax_b = _phase1_scan(
+                        _rows_of(a_dense, ub), b_slots, thr,
+                        u_starts, u_counts, tile=tile, chunk=chunk_esc,
+                        cand_c=cand_s, k_tile=kt_s,
+                    )
+                    if complete and not _all_ranks_agree(
+                        not np.isfinite(bound_b).any()
+                    ):
+                        raise AssertionError(
+                            "sharded-tier complete-width re-match reported a "
+                            "finite drop bound: the completeness invariant is "
+                            "broken"
+                        )
+                    if len(cols_b):
+                        cols_parts.append(cols_b)
+                        bound_parts.append(bound_b)
+                        lo_p = u_starts[pid]
+                        rows_parts.append(ub[lo_p:lo_p + u_counts[pid]] - llo)
+                rows_mine = (
+                    np.concatenate(rows_parts) if rows_parts
+                    else np.zeros(0, dtype=np.int64)
+                )
+                cols_mine = (
+                    np.concatenate(cols_parts) if cols_parts
+                    else np.zeros((0, n_dev * cand_s), dtype=np.int32)
+                )
+                # Every rank runs the ring (score_select is collective), even
+                # with zero own rows this stage.
+                r2, c2, s2, kept2, cut2 = score_select(cols_mine, rows_mine)
+                touched = np.zeros(n_ll, dtype=bool)
+                touched[rows_mine] = True
+                touched_all |= touched
+                keep = ~touched[r_s]
+                r_s = np.concatenate([r_s[keep], r2])
+                c_s = np.concatenate([c_s[keep], c2])
+                s_s = np.concatenate([s_s[keep], s2])
+                # This stage's rows settle or re-queue on their NEW bounds and
+                # selection cuts; rows waiting for a wider rung stay unsafe.
+                unsafe[rows_mine] = False
+                if len(rows_mine) and not complete:
+                    unsafe[rows_mine] = escalation_unsafe(
+                        np.concatenate(bound_parts), kept2[rows_mine],
+                        cut2[rows_mine], qual_low, max_n_eff,
+                    )
+        if touched_all.any():
+            order = np.lexsort((c_s, -s_s, r_s))
+            r_s, c_s, s_s = r_s[order], c_s[order], s_s[order]
 
     # --- memory accounting for the scalability contract.
     local_bytes = left_ell.ids.nbytes + left_ell.vals64.nbytes
@@ -1187,22 +1184,20 @@ def _finish(pairs_local: MatchPairs, row_offset: int, n_m: int,
     (``row_offset`` = the rank's first left row) into the global list, then
     apply the self-join fix-ups identically on every rank (reference
     string_grouper.py:419-427)."""
-    t0 = time.perf_counter()
-    rows_g, cols_g, sims_g = _gather_pair_list(
-        pairs_local.rows + row_offset, pairs_local.cols, pairs_local.sims
-    )
-    true_max = (
-        int(np.bincount(rows_g, minlength=n_m).max(initial=0))
-        if len(rows_g) else 0
-    )
-    pairs = MatchPairs(
-        rows=rows_g, cols=cols_g, sims=sims_g, true_max_n_matches=true_max
-    )
-    t["result_allgather_s"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    if is_self and config.force_symmetries:
-        pairs = apply_self_join_fixups(pairs, n_m)
-    t["fixups_s"] = time.perf_counter() - t0
+    with span("match.mh_result_allgather_s", t, "result_allgather_s"):
+        rows_g, cols_g, sims_g = _gather_pair_list(
+            pairs_local.rows + row_offset, pairs_local.cols, pairs_local.sims
+        )
+        true_max = (
+            int(np.bincount(rows_g, minlength=n_m).max(initial=0))
+            if len(rows_g) else 0
+        )
+        pairs = MatchPairs(
+            rows=rows_g, cols=cols_g, sims=sims_g, true_max_n_matches=true_max
+        )
+    with span("match.mh_fixups_s", t, "fixups_s"):
+        if is_self and config.force_symmetries:
+            pairs = apply_self_join_fixups(pairs, n_m)
     return pairs, t
 
 
@@ -1413,30 +1408,28 @@ def multihost_fit_pairs(
     Every rank calls it with the same full input Series.  Covers self- and
     cross-joins; equal to the single-process engine."""
     t = {}
-    t0 = time.perf_counter()
-    is_self = duplicates is None
-    pid, nproc = _world()
-    dev = resolve_device(config.device)
-    n_m = len(master)
-    n_docs = n_m + (0 if is_self else len(duplicates))
+    with span("match.mh_encode_s", t, "encode_s"):
+        is_self = duplicates is None
+        pid, nproc = _world()
+        dev = resolve_device(config.device)
+        n_m = len(master)
+        n_docs = n_m + (0 if is_self else len(duplicates))
 
-    _per, lo, hi = _shard_bounds(n_docs, nproc, pid)
-    shard = list(master.iloc[lo:min(hi, n_m)]) if lo < n_m else []
-    if hi > n_m:
-        shard += list(duplicates.iloc[max(lo - n_m, 0):hi - n_m])
-    # Sharded encode for both matrix dtypes (the f32 sklearn chain runs
-    # inside multihost_encode_shard against the global df / doc count).
-    local_ell, _idf, n_docs_g = multihost_encode_shard(shard, config)
-    if n_docs_g != n_docs:
-        raise AssertionError(
-            f"global document count mismatch: slices sum to {n_docs_g} "
-            f"but the full corpus has {n_docs} rows"
-        )
-    t["encode_s"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    _check_replicated_capacity(local_ell, n_docs)
-    full_ell = _allgather_full_ell(local_ell)
-    t["ell_allgather_s"] = time.perf_counter() - t0
+        _per, lo, hi = _shard_bounds(n_docs, nproc, pid)
+        shard = list(master.iloc[lo:min(hi, n_m)]) if lo < n_m else []
+        if hi > n_m:
+            shard += list(duplicates.iloc[max(lo - n_m, 0):hi - n_m])
+        # Sharded encode for both matrix dtypes (the f32 sklearn chain runs
+        # inside multihost_encode_shard against the global df / doc count).
+        local_ell, _idf, n_docs_g = multihost_encode_shard(shard, config)
+        if n_docs_g != n_docs:
+            raise AssertionError(
+                f"global document count mismatch: slices sum to {n_docs_g} "
+                f"but the full corpus has {n_docs} rows"
+            )
+    with span("match.mh_ell_allgather_s", t, "ell_allgather_s"):
+        _check_replicated_capacity(local_ell, n_docs)
+        full_ell = _allgather_full_ell(local_ell)
     full_master = _slice_ell(full_ell, 0, n_m)
     full_right = (
         full_master if is_self else _slice_ell(full_ell, n_m, n_docs)
@@ -1444,32 +1437,32 @@ def multihost_fit_pairs(
 
     # Left rows shard contiguously over ranks; each rank runs the complete
     # single-device matcher on its slice.
-    t0 = time.perf_counter()
-    right_series = master if is_self else duplicates
-    n_right = len(right_series)
-    max_n = n_right if config.max_n_matches is None else config.max_n_matches
-    _per_l, lo_l, hi_l = _shard_bounds(n_m, nproc, pid)
-    _check_mesh_everywhere(config.mesh, dev)
-    if hi_l > lo_l:
-        left_slice = _slice_ell(full_master, lo_l, hi_l)
-        kwargs = dict(
-            hash_dim=config.hash_dim,
-            left_chunk=config.left_chunk,
-            right_tile=config.right_tile,
-            score_dtype=config.tfidf_matrix_dtype,
-            left_codes=duplicate_codes(master.iloc[lo_l:hi_l], left_slice),
-            right_codes=duplicate_codes(right_series, full_right),
-        )
-        args = (left_slice, full_right, config.min_similarity, max_n)
-        if config.mesh is not None:
-            pairs_local = distributed_topn_cosine_matches(
-                *args, config.mesh, **kwargs
+    with span("match.mh_match_s", t, "match_s"):
+        right_series = master if is_self else duplicates
+        n_right = len(right_series)
+        max_n = (n_right if config.max_n_matches is None
+                 else config.max_n_matches)
+        _per_l, lo_l, hi_l = _shard_bounds(n_m, nproc, pid)
+        _check_mesh_everywhere(config.mesh, dev)
+        if hi_l > lo_l:
+            left_slice = _slice_ell(full_master, lo_l, hi_l)
+            kwargs = dict(
+                hash_dim=config.hash_dim,
+                left_chunk=config.left_chunk,
+                right_tile=config.right_tile,
+                score_dtype=config.tfidf_matrix_dtype,
+                left_codes=duplicate_codes(master.iloc[lo_l:hi_l], left_slice),
+                right_codes=duplicate_codes(right_series, full_right),
             )
+            args = (left_slice, full_right, config.min_similarity, max_n)
+            if config.mesh is not None:
+                pairs_local = distributed_topn_cosine_matches(
+                    *args, config.mesh, **kwargs
+                )
+            else:
+                pairs_local = topn_cosine_matches(*args, device=dev, **kwargs)
         else:
-            pairs_local = topn_cosine_matches(*args, device=dev, **kwargs)
-    else:
-        pairs_local = _empty_pairs()
-    t["match_s"] = time.perf_counter() - t0
+            pairs_local = _empty_pairs()
     # This rank's matcher stages (escalated rows, p1_wait, ...) beside the
     # tier's own.
     t.update({f"local_{k}": v for k, v in (pairs_local.stats or {}).items()})

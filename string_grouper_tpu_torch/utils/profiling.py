@@ -1,4 +1,5 @@
-"""Per-phase wall times of a fit (``StringGrouper.timings``), and
+"""Per-phase wall times of a fit (``StringGrouper.timings``) and the one
+span helper behind every phase timer of the package (:func:`span`), and
 :func:`trace`, which wraps a block in ``torch.profiler`` for device traces
 that TensorBoard and Perfetto read, with readers of the trace it writes
 (the counterpart of ``string_grouper_tpu.utils.profiling``)."""
@@ -16,6 +17,41 @@ from pathlib import Path
 from typing import Dict, Iterable, Iterator, List, Optional, Tuple
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
+
+
+@contextlib.contextmanager
+def span(name: str, seconds: Optional[Dict[str, float]] = None,
+         key: Optional[str] = None) -> Iterator[None]:
+    """Time the enclosed block: its host seconds (``perf_counter``) add
+    into ``seconds[key]`` (``key`` defaults to ``name``; without
+    ``seconds`` the span only marks the trace).
+
+    While a ``torch.profiler`` records, and only then, the block is also a
+    ``record_function`` range ``sg.<name>`` on the calling thread, so the
+    trace holds it on the clock of the card's kernels and copies.  The
+    check is one read of ``torch.autograd.profiler._is_profiler_enabled``,
+    a module flag the profiler sets for every thread (unlike the
+    thread-local ``torch._C._autograd._profiler_enabled``); with no
+    profiler recording no range object is made.  A worker thread's range
+    shows in a trace only when the profiler records every thread
+    (:func:`trace` does).  A span on a worker thread times into a dict of
+    its own, which the thread that owns ``seconds`` folds in: no dict is
+    written from two threads."""
+    rf = None
+    if _autograd_profiler._is_profiler_enabled:
+        rf = _autograd_profiler.record_function(f"sg.{name}")
+        rf.__enter__()
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        dt = time.perf_counter() - t0
+        if rf is not None:
+            rf.__exit__(None, None, None)
+        if seconds is not None:
+            k = name if key is None else key
+            seconds[k] = seconds.get(k, 0.0) + dt
 
 
 @dataclass
@@ -30,15 +66,9 @@ class PhaseTimings:
     seconds: Dict[str, float] = field(default_factory=dict)
     labels: Dict[str, str] = field(default_factory=dict)
 
-    @contextlib.contextmanager
-    def phase(self, name: str) -> Iterator[None]:
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self.seconds[name] = self.seconds.get(name, 0.0) + (
-                time.perf_counter() - t0
-            )
+    def phase(self, name: str):
+        """:func:`span` ``sg.<name>``, adding into ``seconds[name]``."""
+        return span(name, self.seconds)
 
     def reset(self) -> None:
         self.seconds.clear()
@@ -59,12 +89,14 @@ _TRACING = False
 @contextlib.contextmanager
 def trace(log_dir: str = "/tmp/string_grouper_tpu_trace") -> Iterator[None]:
     """Capture a ``torch.profiler`` trace of the enclosed block: CPU
-    activity, and CUDA activity (kernels, copies, sets) when a GPU is
+    activity on every thread (the worker threads' :func:`span` ranges
+    included), and CUDA activity (kernels, copies, sets) when a GPU is
     present.  On exit it writes ``<host>_<pid>.<ns>.pt.trace.json`` under
     ``log_dir`` (``tensorboard_trace_handler``: TensorBoard's profiler
     plugin, Perfetto and chrome://tracing read it; :func:`trace_files`
     lists them).  A trace inside a running trace raises ``RuntimeError``,
     as a nested ``jax.profiler.start_trace`` does."""
+    from torch._C._profiler import _ExperimentalConfig
     from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
 
     global _TRACING
@@ -78,6 +110,7 @@ def trace(log_dir: str = "/tmp/string_grouper_tpu_trace") -> Iterator[None]:
             activities.append(ProfilerActivity.CUDA)
         os.makedirs(log_dir, exist_ok=True)
         with profile(activities=activities,
+                     experimental_config=_ExperimentalConfig(profile_all_threads=True),
                      on_trace_ready=tensorboard_trace_handler(log_dir)):
             yield
     finally:

@@ -17,12 +17,13 @@ the warm wall to compare against) and one under ``trace``, and prints:
 * the split of ``match.esc_wait``.  That phase is host time: the calls
   that dispatch escalation jobs (``run_rows``: gather, product, extraction,
   compaction, all enqueued) and the waits for their results (the deferred
-  finish: download).  The script marks both with ``record_function``
-  ranges (``esc.dispatch``, ``esc.finish``), then asks what the device was
-  doing during them: the union of the device intervals of each kind inside
-  the ranges -- ``matmul`` (cuBLAS products), ``extraction`` (the top-k
-  extraction's other kernels: max, argmax, scatter, sort, where, gather,
-  the f32 upcasts), ``fused_scan`` (the scan kernels: kt = 2 rungs, and
+  finish: download).  The program marks both with its own ranges
+  (``sg.match.esc_dispatch``, ``sg.match.esc_finish``, which
+  ``utils.profiling.span`` opens while a profiler records), and the
+  script asks what the device was doing during them: the union of the
+  device intervals of each kind inside the ranges -- ``matmul`` (cuBLAS
+  products), ``extraction`` (the top-k extraction's other kernels: max,
+  argmax, scatter, sort, where, gather, the f32 upcasts), ``fused_scan`` (the scan kernels: kt = 2 rungs, and
   phase-1 segments still queued), ``d2h`` / ``h2d`` / ``d2d`` (memory
   copies by direction), ``memset`` -- and ``host``, the part of the
   ranges with the device idle: launch overhead and Python.  The kinds may
@@ -30,7 +31,8 @@ the warm wall to compare against) and one under ``trace``, and prints:
   own device time per kind is printed too: the device events of the
   launches made inside the ranges on the ranges' thread, wherever they
   ran (matched by correlation id; the downloads, which a worker thread
-  issues, count in the split only);
+  issues under its own ``sg.match.esc_download`` range, count in the
+  split only);
 * the traced call's phases beside the warm untraced call's (tracing costs
   time per launch).
 
@@ -54,45 +56,14 @@ sys.path.insert(0, str(ROOT))
 
 import string_grouper_tpu_torch as sgt  # noqa: E402
 from string_grouper_tpu_torch.ops import kernels as K  # noqa: E402
-from string_grouper_tpu_torch.ops import matcher as M  # noqa: E402
 from string_grouper_tpu_torch.utils import profiling as P  # noqa: E402
 from string_grouper_tpu_torch.utils.synthetic import synthetic_company_names  # noqa: E402
 
 N_FULL = 663_000
 ROWS_FULL = 4_558_752
 TRACE_DIR = ROOT / "build" / "trace_663k"
-ESC_RANGES = ("esc.dispatch", "esc.finish")
+ESC_RANGES = ("sg.match.esc_dispatch", "sg.match.esc_finish")
 MATMUL = re.compile(r"gemm|xmma|cutlass|cublas", re.IGNORECASE)
-
-
-def annotate_escalation():
-    """Wrap ``adaptive_topn``'s escalation entry (``phase1_run_rows``) and
-    the deferred finish it returns in ``record_function`` ranges: exactly
-    the host time ``match.esc_wait`` adds up.  Returns the restore."""
-    real = M.adaptive_topn
-
-    def adaptive_topn(*args, phase1_run_rows=None, **kw):
-        if phase1_run_rows is not None:
-            run_rows = phase1_run_rows
-
-            def phase1_run_rows(*a, **k):
-                with torch.profiler.record_function("esc.dispatch"):
-                    out = run_rows(*a, **k)
-                if not k.get("defer"):
-                    return out
-
-                def finish():
-                    with torch.profiler.record_function("esc.finish"):
-                        return out()
-                return finish
-        return real(*args, phase1_run_rows=phase1_run_rows, **kw)
-
-    M.adaptive_topn = adaptive_topn
-
-    def restore():
-        M.adaptive_topn = real
-
-    return restore
 
 
 def self_join(s):
@@ -185,12 +156,8 @@ def main() -> int:
     print(f"untraced: cold {cold[0]:.3f} s, warm {warm[0]:.3f} s "
           f"(esc_wait {warm[1]['match.esc_wait']:.3f} s)", flush=True)
     shutil.rmtree(TRACE_DIR, ignore_errors=True)
-    restore = annotate_escalation()
-    try:
-        with P.trace(log_dir=str(TRACE_DIR)):
-            traced = self_join(s)
-    finally:
-        restore()
+    with P.trace(log_dir=str(TRACE_DIR)):
+        traced = self_join(s)
     t0 = time.perf_counter()
     path = P.trace_files(str(TRACE_DIR))[-1]
     res = analyse(P.read_trace(path))
