@@ -10,7 +10,7 @@ Phases (any failure raises and the script exits non-zero without a result):
 1. Device: the card's name and power limit;
    build the CUDA kernels from string_grouper_tpu_torch/csrc/ (one nvcc per
    source, all started together) and print the build time, and beside it
-   ``nvcc -Xptxas -v``'s registers, shared memory and spills for the five
+   ``nvcc -Xptxas -v``'s registers, shared memory and spills for the six
    kernels on the TMA/wgmma scan (no stack, no spills and no serialized
    wgmma, and both instantiations of ``p1_fused_closed2``, A resident and
    A streamed (sub-block pairs, B shared by a cluster of 2 row blocks), at
@@ -93,15 +93,18 @@ Phases (any failure raises and the script exits non-zero without a result):
    ``device_hash_codes`` launched), and ``compute_pairwise_similarities``
    on 5,000 pairs (a host encode and row dot).  Then the 20,000-name
    self-join under ``SG_TPU_FUSED=0``: the same frame with no
-   ``p1_fused_closed2`` launch (the torch-op body everywhere); and the
+   ``p1_fused_closed2`` or ``p1_fused_topk`` launch (the torch-op body
+   everywhere); and the
    torch op ``hashed_projection`` (ops/hashing.py, off the main path) on
    the card over the 20,000-name ELL, bitwise its CPU result, timed beside
    its bytes bound and an ``index_add_`` yardstick.  Last, the 20,000-name
    self-join under ``utils.profiling.trace``: the phase-4 frame, and a trace
-   file (under build/) holding CUDA kernel events of ``p1_fused_closed2``'s
-   library (``scan_kernel``).
+   file (under build/) holding one CUDA kernel event ``scan_kernel`` per
+   launch of ``p1_fused_closed2`` and ``p1_fused_topk``.
 5. The full self-join at 663,000 names on the card: wall time, phases,
-   escalation rungs, kernel launches, and the output row count.  On that
+   escalation rungs, kernel launches, and the output row count; every
+   escalation job's route (rows, kt, C) logged, each kt 4-32 job one
+   ``p1_fused_topk`` launch and ``match.esc_kernel_rows`` their rows.  On that
    run's grouper, with no refit: ``get_groups()`` (time, group count), and
    the torch op ``_cc_labels`` on the card over its matches list, equal to
    the native union-find's labels, each timed (the op beside its bytes
@@ -111,14 +114,22 @@ Phases (any failure raises and the script exits non-zero without a result):
    frame, with p1_wait and wall printed.  Last, ``match_most_similar`` of
    the 663,000 names against 100,000 others: wall, phases, launches,
    100,000 output rows, and the verbatim check of
-   ``check_verbatim_duplicates``.  The whole phase runs with
+   ``check_verbatim_duplicates``, and its escalation jobs held as the
+   self-join's.  The whole phase runs with
    ``torch.backends.cuda.matmul.allow_tf32`` set to True, and after it the
    flag and ``torch.get_float32_matmul_precision()`` must still read what
    was set (the matcher restores the caller's setting).
+5t. ``p1_fused_topk`` at the shapes of those two calls' escalation jobs
+   (the first job of each (call, kt, C): A its first 4096 rows, repeated
+   where fewer, x B the call's padded right rows x 512) against its
+   plain version by phase 2's rule, then timed by CUDA events beside its
+   operations bound (2 m n d at the bf16 peak), the plain version and the
+   torch-op body it replaces.
 5w. The main path at ``hash_dim=1024``: the 663,000-name self-join
    (4,558,752 rows, phase 5's default frame; wall, timings, escalated rows
    per kt, pairs rescored and launches printed; ``p1_fused_closed2``
-   launched, and no kt = 2 pass on the matcher's torch-op body), the same
+   launched, no ``p1_fused_topk`` launch (d > 512) and no kt = 2 pass on
+   the matcher's torch-op body), the same
    under SG_TPU_CHUNKED_P1=1 (``p1_fused_chain`` launched); at 20,000
    names card == CPU == phase 4's frame, SG_TPU_FUSED=0 the same frame with
    no kernel launch (its wall beside the kernel's), a (2, 2) virtual mesh
@@ -223,9 +234,11 @@ CHUNKED_PATH = ("p1_fused_chain", "device_hash_codes")
 # whose hash is the torch op ``_device_hash``: device_hash_codes must stay 0.
 PACKED_PATH = ("p1_fused_closed2",)
 CUSTOM_REGEX = r"[,-./#&]|\s"
-# The five kernels on the TMA/wgmma scan (csrc/p1_scan_sm90.cuh).
+# The six kernels on the TMA/wgmma scan (csrc/p1_scan_sm90.cuh).
 SCAN_KERNELS = ("p1_fused_closed2", "p1_fused_chain", "p1_tri_fused",
-                "p1_mm_floor", "p1_closed2_variant")
+                "p1_mm_floor", "p1_closed2_variant", "p1_fused_topk")
+# Left rows of phase 5t's escalation jobs (a job's rows, repeated to this).
+TOPK_ROWS = 4096
 # p1_fused_closed2's registers a thread, in both of its instantiations
 # (ptxas; 65,536 / 384 threads).
 CLOSED2_REGISTERS = 168
@@ -1191,6 +1204,85 @@ def spy_torch_op_scan(M):
     return restore, calls
 
 
+# ----------------------------------------------------------------- phase 5t
+def spy_topk_jobs(M, now, jobs, keep, rows=TOPK_ROWS):
+    """Log every escalation job's route (``use_fused_topk``: rows, k_tile,
+    top-C, kernel or not) into ``jobs[now[0]]``, and keep in ``keep`` the
+    first ``p1_fused_topk`` job of each (``now[0]``, k_tile, cand_c): its
+    first ``rows`` left hash rows (a copy), the right rows, threshold and
+    tile.  ``now[0]`` names the call under way.  The launches still run.
+    Returns ``restore()``."""
+    rule, kernel = M.use_fused_topk, M.p1_fused_topk
+
+    def use(device, k_tile, thr, m, n, d, tile, cand_c):
+        on = rule(device, k_tile, thr, m, n, d, tile, cand_c)
+        jobs.setdefault(now[0], []).append(
+            dict(m_pad=m, k_tile=k_tile, cand_c=cand_c, kernel=on))
+        return on
+
+    def launch(a_hash, b_hash, thr_eff, tile, cand_c, k_tile):
+        key = (now[0], k_tile, cand_c)
+        if key not in keep:
+            keep[key] = (a_hash[:rows].clone(), b_hash, thr_eff, tile)
+        return kernel(a_hash, b_hash, thr_eff, tile=tile, cand_c=cand_c, k_tile=k_tile)
+
+    M.use_fused_topk, M.p1_fused_topk = use, launch
+
+    def restore():
+        M.use_fused_topk, M.p1_fused_topk = rule, kernel
+
+    return restore
+
+
+def check_topk_jobs(K, M, keep, reps=10):
+    """Phase 5t: ``p1_fused_topk`` on the card at the shapes of the 663k
+    calls' escalation jobs, one kept job per (call, k_tile, top-C), its
+    rows repeated to ``TOPK_ROWS``: against its plain version by phase 2's
+    rule (ship sets, counts and tmax equal, bounds within TOL, borderline
+    rows excepted; each row's valid entries a prefix; max_cnt the largest
+    tmax); then timed by CUDA events beside its operations bound (2 m n d
+    at the bf16 peak), the plain version and the torch-op body
+    ``_corpus_match`` (the path it replaces, one launch sequence each)."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rows, max_err = [], 0.0
+    for (label, kt, cand_c), (a, b, thr, tile) in keep.items():
+        if a.shape[0] < TOPK_ROWS:
+            a = a[torch.arange(TOPK_ROWS, device=a.device) % a.shape[0]].contiguous()
+        m, n, d = a.shape[0], b.shape[0], a.shape[1]
+
+        def kernel():
+            return K.p1_fused_topk(a, b, thr, tile=tile, cand_c=cand_c, k_tile=kt)
+
+        got = kernel()
+        want = K.p1_fused_topk_plain(a, b, thr, tile=tile, cand_c=cand_c, k_tile=kt)
+        torch.cuda.synchronize()
+        valid = got[0] >= 0
+        assert bool((valid[:, 1:] <= valid[:, :-1]).all()), "ship prefix invariant"
+        assert int(got[4]) == int(got[2].max()) == int(want[4]), (got[4], want[4])
+        assert int(got[1].sum()) > 0, f"{label} kt={kt}: nothing qualified"
+        what = f"p1_fused_topk ({label}, kt={kt}, C={cand_c})"
+        err, n_border = compare_scan(what, got[:4], want[:4], a, b, thr)
+        max_err = max(max_err, err)
+        ms = cuda_ms(kernel, reps)
+        plain_ms = cuda_ms(lambda: K.p1_fused_topk_plain(
+            a, b, thr, tile=tile, cand_c=cand_c, k_tile=kt), 1, warmup=False)
+        body_ms = cuda_ms(lambda: M._corpus_match(
+            a.reshape(1, m, d), b.reshape(-1, tile, d), thr, cand_c, kt), 1)
+        bound_ms = 2.0 * m * n * d / PEAK_BF16 * 1e3
+        row = dict(call=label, shape=[m, n, d], k_tile=kt, cand_c=cand_c, tile=tile,
+                   splits=K.topk_splits(m, n, tile, cand_c, sms), ms=ms,
+                   bound_ms=bound_ms, share=bound_ms / ms, plain_ms=plain_ms,
+                   torch_body_ms=body_ms, rows_equal=m - n_border,
+                   borderline_rows=n_border, max_abs_err=err,
+                   qualified_per_row=float(got[1].float().mean()),
+                   rows_over_kt=int((got[2] > kt).sum()))
+        log(f"{what} vs plain at A {m} x B {n} x {d}: {m - n_border} rows equal, "
+            f"{n_border} borderline; " + json.dumps(row))
+        rows.append(row)
+        del a, got, want
+    return rows, max_err
+
+
 # ------------------------------------------------------------------ phase 6
 def _events():
     return (torch.cuda.Event(enable_timing=True),
@@ -1868,7 +1960,8 @@ def main() -> int:
     finally:
         del os.environ["SG_TPU_FUSED"]
     l_off = dict(K.LAUNCHES)
-    assert l_off["p1_fused_closed2"] == 0, f"SG_TPU_FUSED=0 launches {l_off}"
+    assert l_off["p1_fused_closed2"] == l_off["p1_fused_topk"] == 0, \
+        f"SG_TPU_FUSED=0 launches {l_off}"
     assert l_off["device_hash_codes"] > 0, f"SG_TPU_FUSED=0 launches {l_off}"
     pd.testing.assert_frame_equal(off_df, frames4["default"])
     log(f"SG_TPU_FUSED=0 self-join ({N_FRAME} names): equal to the card frame, "
@@ -1891,7 +1984,9 @@ def main() -> int:
     events = PR.read_trace(trace_file)
     scan = {k: v for k, v in PR.kernel_durations(events).items() if "scan_kernel" in k}
     assert scan, "the trace holds no kernel event of p1_fused_closed2's library"
-    assert sum(len(v) for v in scan.values()) == K.LAUNCHES["p1_fused_closed2"], \
+    # one scan_kernel a launch of either kernel on the scan
+    assert sum(len(v) for v in scan.values()) == (
+        K.LAUNCHES["p1_fused_closed2"] + K.LAUNCHES["p1_fused_topk"]), \
         (scan.keys(), K.LAUNCHES)
     busy = PR.union_us(PR.device_intervals(events)) / 1e6
     log(f"traced self-join ({N_FRAME} names): equal to the card frame, {t_traced:.2f} s "
@@ -1931,7 +2026,27 @@ def main() -> int:
         assert np.isfinite(frame.similarity.to_numpy()).all()
         return frame, launches, grouper
 
-    out, launches, grouper = self_join("default", DEFAULT_PATH)
+    # escalation's kt 4-32 jobs: routes logged, one job per (kt, C) kept
+    now, topk_jobs, topk_keep = ["dedup"], {}, {}
+
+    def check_topk_route(label, launched, secs):
+        """Every kt 4-32 job of ``label`` took the kernel, one launch each,
+        and ``match.esc_kernel_rows`` holds every kt 4-32 escalated row."""
+        jobs = [j for j in topk_jobs.get(label, []) if 4 <= j["k_tile"] <= 32]
+        wide = sum(v for k, v in secs.items() if k.startswith("match.esc_rows_r")
+                   and 4 <= int(k.rsplit("kt", 1)[1]) <= 32)
+        log(f"escalation jobs ({label}): {topk_jobs.get(label)}; p1_fused_topk "
+            f"launches {launched}, match.esc_kernel_rows {secs['match.esc_kernel_rows']}")
+        assert launched > 0 and launched == len(jobs), label
+        assert all(j["kernel"] for j in jobs), label
+        assert secs["match.esc_kernel_rows"] == wide > 0, (label, secs)
+
+    restore = spy_topk_jobs(M, now, topk_jobs, topk_keep)
+    try:
+        out, launches, grouper = self_join("default", DEFAULT_PATH)
+    finally:
+        restore()
+    check_topk_route("dedup", launches["p1_fused_topk"], grouper.timings.seconds)
     stamp("phase 5: get_groups() and the torch op _cc_labels on the 663k matches")
     t0 = time.perf_counter()
     groups = grouper.get_groups()
@@ -1997,6 +2112,8 @@ def main() -> int:
         return real_get_groups(self, *a, **k)
 
     sgt.StringGrouper.get_groups = spy_get_groups
+    now[0] = "link"
+    restore = spy_topk_jobs(M, now, topk_jobs, topk_keep)
     K.reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2004,6 +2121,7 @@ def main() -> int:
         nearest = sgt.match_most_similar(s_full, dupes_n)
     finally:
         sgt.StringGrouper.get_groups = real_get_groups
+        restore()
     wall = time.perf_counter() - t0
     l_nearest = dict(K.LAUNCHES)
     assert len(seen) == 1
@@ -2021,6 +2139,7 @@ def main() -> int:
         f"another duplicate at that similarity; launches {l_nearest}")
     log("timings: " + json.dumps(
         {k: (round(v, 4) if isinstance(v, float) else v) for k, v in secs.items()}))
+    check_topk_route("link", l_nearest["p1_fused_topk"], secs)
     del seen, nearest
     assert_off_path(l_nearest, "663k match_most_similar")
     tf32_after = (torch.backends.cuda.matmul.allow_tf32,
@@ -2029,6 +2148,12 @@ def main() -> int:
     log(f"TF32: set to {tf32_set} (allow_tf32, precision) before the 663k calls, "
         f"{tf32_after} after them: unchanged")
     torch.set_float32_matmul_precision(tf32_before[1])
+
+    # ---- phase 5t: p1_fused_topk at the escalation jobs' shapes -------------
+    stamp("phase 5t: p1_fused_topk at the 663k calls' escalation job shapes")
+    topk_rows, topk_err = check_topk_jobs(K, M, topk_keep)
+    del topk_keep
+    torch.cuda.empty_cache()
 
     # ---- phase 5w: the main path at hash_dim = 1024 ------------------------
     stamp(f"phase 5w: the {N_FULL}-name self-join at hash_dim=1024")
@@ -2055,6 +2180,7 @@ def main() -> int:
         {k: (round(v, 4) if isinstance(v, float) else v) for k, v in secs.items()}))
     assert l_wide["p1_fused_closed2"] > 0, f"hash_dim=1024 launches {l_wide}"
     assert l_wide["device_hash_codes"] > 0, f"hash_dim=1024 launches {l_wide}"
+    assert l_wide["p1_fused_topk"] == 0, f"hash_dim=1024 launches {l_wide}"
     assert body[2] == 0, f"a kt=2 pass ran the torch-op body at hash_dim=1024: {body}"
     assert_off_path(l_wide, "663k hash_dim=1024")
     assert len(frame) == ROWS_FULL, f"{len(frame)} output rows, expected {ROWS_FULL}"
@@ -2256,6 +2382,8 @@ def main() -> int:
     stamp("all phases passed")
 
     src = "string_grouper_tpu_torch/csrc/{}.cu"
+    # p1_fused_topk's headline row: the dedup call's kt 4 job
+    topk_dedup4 = next(r for r in topk_rows if r["call"] == "dedup" and r["k_tile"] == 4)
     pk = "string_grouper_tpu/ops/pallas_kernels.py:{}"
     kernels = [
         dict(name="p1_fused_closed2", route="cuda",
@@ -2279,6 +2407,12 @@ def main() -> int:
              launches=launches["device_hash_codes"] + l_mesh["device_hash_codes"]
              + l_slots["device_hash_codes"] + l_wide["device_hash_codes"],
              **res_hash),
+        dict(name="p1_fused_topk", route="cuda", source=src.format("p1_fused_topk"),
+             replaces="string_grouper_tpu/ops/matcher.py:703",
+             launches=launches["p1_fused_topk"] + l_nearest["p1_fused_topk"],
+             **{k: v for k, v in topk_dedup4.items()
+                if k in ("ms", "bound_ms", "plain_ms", "torch_body_ms")},
+             bound_by="operations", max_abs_err=topk_err, jobs=topk_rows),
         dict(name="p1_mm_floor", route="cuda", source=src.format("p1_mm_floor"),
              replaces="benchmarks/ab_p1_epilogue.py:66", **res_floor),
         dict(name="p1_closed2_variant", route="cuda",

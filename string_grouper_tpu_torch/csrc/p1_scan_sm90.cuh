@@ -1,5 +1,5 @@
 // The fused phase-1 scan for Hopper (sm_90a), built on TMA, mbarriers and
-// wgmma, shared by five kernels:
+// wgmma, shared by six kernels:
 //   p1_fused_closed2.cu  one pass over the whole right corpus   (kClosed)
 //   p1_fused_chain.cu    one pass over a right column chunk,
 //                        resuming from the previous chunk's state (kChain)
@@ -11,13 +11,17 @@
 //   p1_closed2_variant.cu  kClosed under two compile-time switches: the
 //                        tie rule of the argmax (TIE) and the left rows
 //                        of a block (ROWS, 128 or 64)
+//   p1_fused_topk.cu     one pass over the whole right corpus with the
+//                        tile's top kt (4, 8, 16 or 32) in place of the
+//                        closed-form top 2: escalation's re-match (kTopK)
 // It replaces the Pallas kernels p1_fused_closed2, p1_fused_chain and the
 // scan of p1_tri_fused of the JAX package
 // (string_grouper_tpu/ops/pallas_kernels.py:117-179, :275-358 and
 // :631-726; bodies _p1_body :47-114, _p1_chain_body :183-257 and
 // _p1_tri_body :414-623), and the A/B probes mm_floor and variant of
 // benchmarks/ab_p1_epilogue.py (:65-88, body _mm_body :56-62; :160-200,
-// bodies _p1_body_minidx :92-157 and _p1_body).
+// bodies _p1_body_minidx :92-157 and _p1_body), and the XLA tile body
+// _ub_topk_scan at 4 <= kt <= 32 (string_grouper_tpu/ops/matcher.py:701).
 //
 // For one block of 128 left rows of A (m, d) bf16 against the walked right
 // columns B (n, d) bf16 it computes, per row and per logical tile of `tile`
@@ -114,6 +118,37 @@
 //   per-thread counter; no tile state, no rank insert, no top-C buffers.
 //   The counters are summed across the quad once, after the walk.  The
 //   product's k order is kClosed's, so the counts are its bits.
+// * kTopK (kTopK + j: kt = 4 << j, a compile-time width): per row and tile
+//   the qualified count, tmax, and the tile's top kt by (value desc, first
+//   column on ties), rank-inserted into the running top-C where a new
+//   entry goes after equal old ones; the drop bound is the kt-th value of
+//   a tile whose count exceeds kt, or what leaves the top-C.  The product
+//   is kClosed's (same ring, same k order: a row's scores are phase 1's
+//   bits), A resident only.  Escalation sends rows here bucketed by phase
+//   1's tmax, so within a job a tile of a row rarely holds more than kt
+//   qualified columns: the epilogue is a sparse append.  Each row has kt
+//   (value, column) slots in shared memory (BM x kt x 8 bytes: 32 KB at kt
+//   = 32, two of the ring's 16 KB stages); a sub-block whose warp has no
+//   qualified score costs kClosed's max and compare, plus one vote.  Else
+//   the quad counts its qualified scores, scans the counts, and each lane
+//   appends its own at its offset (a lane's scores picked from the
+//   accumulator by selects, so it stays in registers).  A tile that would
+//   overflow its kt slots takes the exact path: the quad's lanes in turn
+//   push their scores through a replace-the-worst insert.  At the tile's
+//   end the warp merges each row with a hit, row after row, into its
+//   running top-C in global memory (L2-resident): the new entries' ranks
+//   among themselves by shuffles, then the row's finite prefix walked in
+//   32-slot chunks from its end (each old entry moves down by the new
+//   entries above it, each new one lands after the old entries >= it),
+//   stopping at the first chunk that starts at or above the new maximum.
+//   So a merge costs the slots below the new maximum, not C: any C a
+//   multiple of 8.  A job of few rows would leave most SMs idle (4096
+//   rows are 32 blocks on 132 SMs), so the columns split too: block
+//   (x, y) walks split y of gridDim.y contiguous tile ranges and writes its
+//   own running top-C and counters (partials; nothing is initialised, only
+//   each list's finite prefix is ever read), and p1_fused_topk.cu's merge
+//   joins the splits in order.  Splits at tile boundaries, merged as a
+//   stable sort in split order, are bitwise one pass.
 // * Streamed A (STREAM_A, kClosed / kChain / kTri at 128 rows): A's 128
 //   resident rows take d * 256 bytes, 256 KB at d = 1024, more than a
 //   block has.  Past d = RESIDENT_MAX_D (512: 128 KB of A beside a 6-stage
@@ -183,7 +218,17 @@ constexpr int SMEM_LIMIT = 232448;  // a block's shared memory on the H100
 constexpr int kEncodeError = 10000;
 constexpr float NEG = -__builtin_huge_valf();
 
-enum Mode { kClosed = 0, kChain = 1, kTri = 2, kCount = 3 };
+enum Mode { kClosed = 0, kChain = 1, kTri = 2, kCount = 3, kTopK = 4 };
+// kTopK + j is the top-kt epilogue at kt = 4 << j (j = 0..3)
+__host__ __device__ constexpr bool is_topk(int mode) { return mode >= kTopK; }
+__host__ __device__ constexpr int topk_kt(int mode) {
+  return is_topk(mode) ? 4 << (mode - kTopK) : 0;
+}
+__host__ __device__ constexpr int topk_mode(int kt) {
+  return kTopK + (kt >= 32 ? 3 : kt >= 16 ? 2 : kt >= 8 ? 1 : 0);
+}
+// shared bytes of kTopK's tile buffers: BM rows of kt values and columns
+__host__ __device__ constexpr int topk_bytes(int mode) { return BM * topk_kt(mode) * 8; }
 enum Tie { kFirst = 0, kMinIdx = 1 };  // p1_closed2_variant's argmax rule
 constexpr int NO_COL = 0x7fffffff;     // the column of an empty tile state
 
@@ -202,7 +247,8 @@ struct Args {
   int* tmax;
   float* bound;
   int* meta;      // kChain state (m, 3): [counts, tmax, nfin]
-  float* tb;      // kChain state (m,): per-tile drop bound
+  float* tb;      // kChain state (m,): per-tile drop bound (kTopK: the
+                  //   splits' [counts, tmax, nfin] and bounds in meta, tb)
   float* rmeta;   // kTri (m, 8): [cnt, tmax, bound, nfin, 0, 0, 0, 0]
   int fut_start;  // kTri: first walked column of the column side
   int64_t n_fut;  // kTri: columns of the column side (statistics stride)
@@ -536,6 +582,213 @@ __device__ __forceinline__ void col_flush(ColStage* cs, const Args& p,
   }
 }
 
+// ---- the top-kt epilogue (kTopK) ---------------------------------------------
+// Score i (0..31) of the thread's row h, sub-block column 8 (i / 2) + 2q +
+// i % 2, at a run-time i: selects, so that acc stays in registers.
+__device__ __forceinline__ float pick(const float (&acc)[64], int h, int i) {
+  float x = acc[2 * h];
+#pragma unroll
+  for (int t = 1; t < 32; ++t) x = t == i ? acc[4 * (t >> 1) + 2 * h + (t & 1)] : x;
+  return x;
+}
+
+// The slot of a full row buffer's last entry under (value desc, column asc).
+template <int KT>
+__device__ __forceinline__ int topk_worst(const float* bv, const int* bc) {
+  int w = 0;
+#pragma unroll 1
+  for (int t = 1; t < KT; ++t)
+    if (bv[t] < bv[w] || (bv[t] == bv[w] && bc[t] > bc[w])) w = t;
+  return w;
+}
+
+// The exact path of a tile that overflows its kt slots: this lane's
+// qualified scores (bits of mask) into the row buffer (bv, bc) holding n
+// entries: appended while there is room, then each replaces the worst
+// entry when it beats it.  The kt best of all pushed scores stay, in any
+// order of the pushes.
+template <int KT>
+__device__ __forceinline__ void topk_push(float* bv, int* bc, int n, unsigned mask,
+                                          const float (&acc)[64], int h, int col0) {
+  int w = n == KT ? topk_worst<KT>(bv, bc) : 0;
+  while (mask) {
+    const int i = __ffs(mask) - 1;
+    mask &= mask - 1;
+    const float x = pick(acc, h, i);
+    const int col = col0 + 8 * (i >> 1) + (i & 1);
+    if (n < KT) {
+      bv[n] = x;
+      bc[n] = col;
+      if (++n == KT) w = topk_worst<KT>(bv, bc);
+    } else if (x > bv[w] || (x == bv[w] && col < bc[w])) {
+      bv[w] = x;
+      bc[w] = col;
+      w = topk_worst<KT>(bv, bc);
+    }
+  }
+}
+
+// One sub-block into the rows' tile buffers (bv, bc: BM rows of KT slots;
+// rloc the block-local row of h = 0).  r.t_cnt[h] is the tile's qualified
+// count so far, the same in the quad's 4 lanes.
+template <int KT>
+__device__ __forceinline__ void topk_sub_block(Rows& r, const float (&acc)[64],
+                                               float thr, int tcol0, int lane,
+                                               float* bv, int* bc, int rloc) {
+  const int q = lane & 3;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float mx = acc[2 * h];
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+      mx = fmaxf(mx, fmaxf(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]));
+    if (!__any_sync(0xffffffffu, mx >= thr)) continue;
+    unsigned mask = 0;
+    if (mx >= thr) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        mask |= static_cast<unsigned>(acc[4 * (i >> 1) + 2 * h + (i & 1)] >= thr) << i;
+    }
+    // the quad's counts, scanned: this lane's first slot and the quad's total
+    const int nq = __popc(mask);
+    int incl = nq;
+    int t = __shfl_up_sync(0xffffffffu, incl, 1, 4);
+    if (q >= 1) incl += t;
+    t = __shfl_up_sync(0xffffffffu, incl, 2, 4);
+    if (q >= 2) incl += t;
+    const int total = __shfl_sync(0xffffffffu, incl, 3, 4);
+    const int fill = r.t_cnt[h];
+    const int start = fill + incl - nq;
+    float* rv = bv + (rloc + 8 * h) * KT;
+    int* rc = bc + (rloc + 8 * h) * KT;
+    const int col0 = tcol0 + 2 * q;
+    const bool over = fill + total > KT;
+    if (!over) {
+      for (int s = start; mask; ++s) {
+        const int i = __ffs(mask) - 1;
+        mask &= mask - 1;
+        rv[s] = pick(acc, h, i);
+        rc[s] = col0 + 8 * (i >> 1) + (i & 1);
+      }
+    }
+    if (__any_sync(0xffffffffu, over)) {
+      __syncwarp();  // the slots other lanes stored before this read them
+      for (int src = 0; src < 4; ++src) {  // the quad's lanes in turn
+        if (over && q == src) topk_push<KT>(rv, rc, min(start, KT), mask, acc, h, col0);
+        __syncwarp();
+      }
+    }
+    r.t_cnt[h] = fill + total;
+  }
+}
+
+// Close the tile: the running counters, then, row after row, each of the
+// warp's rows with a qualified column merged into its running top-C.
+// `off` is the tile's global column.
+template <int KT>
+__device__ __forceinline__ void topk_close(Rows& r, const Args& p, int row_lo, int off,
+                                           int lane, const float* bv, const int* bc,
+                                           int rloc) {
+  __syncwarp();  // the quads' appends before other lanes read them
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int tcnt = r.t_cnt[h];
+    const int had = r.nfin[h];
+    r.counts[h] += tcnt;
+    r.tmax[h] = max(r.tmax[h], tcnt);
+    r.nfin[h] += min(tcnt, KT);
+    unsigned hits = __ballot_sync(
+        0xffffffffu, (lane & 3) == 0 && tcnt > 0 && row_lo + 8 * h < p.m);
+    while (hits) {
+      const int src = __ffs(hits) - 1;
+      hits &= hits - 1;
+      const int cnt = __shfl_sync(0xffffffffu, tcnt, src);
+      const int n = min(cnt, KT);
+      const int full = min(__shfl_sync(0xffffffffu, had, src), p.cand_c);
+      const int dr = (src >> 2) - (lane >> 2) + 8 * h;
+      // lane j < n holds the tile's entry j; rj its rank among them
+      float pj = NEG;
+      int qj = 0;
+      if (lane < n) {
+        pj = bv[(rloc + dr) * KT + lane];
+        qj = bc[(rloc + dr) * KT + lane] + off;
+      }
+      int rj = 0;
+      float pmax = NEG, pmin = -NEG;
+      for (int i = 0; i < n; ++i) {
+        const float pi = __shfl_sync(0xffffffffu, pj, i);
+        const int qi = __shfl_sync(0xffffffffu, qj, i);
+        rj += pi > pj || (pi == pj && qi < qj);
+        pmax = fmaxf(pmax, pi);
+        pmin = fminf(pmin, pi);
+      }
+      if (cnt > KT && (lane >> 2) == (src >> 2)) r.tb[h] = fmaxf(r.tb[h], pmin);
+      // this split's list of the row
+      const int64_t g =
+          (static_cast<int64_t>(blockIdx.y) * p.m + row_lo + dr) * p.cand_c;
+      float* v = p.v + g;
+      int* c = p.c + g;
+      // the finite prefix [0, full) from its end, 32 slots at a time: each
+      // old entry moves down by the new entries above it; lane j counts
+      // the old entries >= p_j
+      int ahead = 0;
+      for (int base = (full - 1) & ~31; base >= 0; base -= 32) {
+        const int k = base + lane;
+        const bool in = k < full;
+        const float vk = in ? v[k] : NEG;
+        const int ck = in ? c[k] : 0;
+        int shift = 0;
+        for (int i = 0; i < n; ++i) {
+          const float pi = __shfl_sync(0xffffffffu, pj, i);
+          shift += pi > vk;
+          const unsigned ge = __ballot_sync(0xffffffffu, in && vk >= pi);
+          if (lane == i) ahead += __popc(ge);
+        }
+        __syncwarp();
+        if (in && shift > 0 && k + shift < p.cand_c) {
+          v[k + shift] = vk;
+          c[k + shift] = ck;
+        }
+        __syncwarp();
+        // every slot below base holds a value >= v[base]: none moves
+        if (__shfl_sync(0xffffffffu, vk, 0) >= pmax) {
+          ahead += base;
+          break;
+        }
+      }
+      if (lane < n && ahead + rj < p.cand_c) {
+        v[ahead + rj] = pj;
+        c[ahead + rj] = qj;
+      }
+      __syncwarp();
+    }
+  }
+  open_tile(r);
+}
+
+// The walk's end: this split's counters of the lane's rows, [counts,
+// tmax, nfin] into meta and the tile drop bound into tb.
+__device__ __forceinline__ void topk_split_out(const Rows& r, const Args& p, int row_lo,
+                                               int lane) {
+  if ((lane & 3) != 0) return;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int gr = row_lo + 8 * h;
+    if (gr >= p.m) continue;
+    const int64_t g = static_cast<int64_t>(blockIdx.y) * p.m + gr;
+    p.meta[3 * g] = r.counts[h];
+    p.meta[3 * g + 1] = r.tmax[h];
+    p.meta[3 * g + 2] = r.nfin[h];
+    p.tb[g] = r.tb[h];
+  }
+}
+
+// kTopK: the first sub-block of split y of gridDim.y (whole tiles each).
+__device__ __forceinline__ int split_sb(const Args& p, int y) {
+  const int nt = p.n / p.tile;
+  return (nt * y / static_cast<int>(gridDim.y)) * (p.tile / BN);
+}
+
 // Fold one sub-block's scores (accumulator layout) into the open tile:
 // column tcol0 + 8j + 2q + e sits in acc[4j + 2h + e].  COL (kTri,
 // future columns): each qualified score also goes to its column's
@@ -711,6 +964,15 @@ __device__ __forceinline__ void epilogue(Rows& r, const float (&acc)[64],
   }
   const int col0 = sb * BN;
   const int tcol0 = col0 % p.tile;
+  if constexpr (is_topk(MODE)) {
+    constexpr int KT = topk_kt(MODE);
+    float* bv = reinterpret_cast<float*>(cst);  // kTopK's tile buffers
+    int* bc = reinterpret_cast<int*>(bv + BM * KT);
+    topk_sub_block<KT>(r, acc, p.thr, tcol0, lane, bv, bc, rloc);
+    if ((col0 + BN) % p.tile == 0)
+      topk_close<KT>(r, p, row_lo, p.col_off + col0 - tcol0, lane, bv, bc, rloc);
+    return;
+  }
   const bool col_side = MODE == kTri && col0 >= p.fut_start;
   const int buf = col_side ? sb % p.col_bufs : 0;
   ColStage* cs = col_side ? cst + buf : nullptr;
@@ -841,6 +1103,7 @@ __global__ void __launch_bounds__(threads(ROWS), 1)
                 "the switches are kClosed's");
   static_assert(!STREAM_A || (ROWS == BM && TIE == kFirst && MODE != kCount),
                 "A streams in kClosed, kChain and kTri at 128 rows");
+  static_assert(!is_topk(MODE) || !STREAM_A, "kTopK keeps A resident");
   constexpr int CL = cluster_of(STREAM_A);
   constexpr int CWG = ROWS / 64;     // consumer warpgroups
   constexpr int NTR = threads(ROWS);
@@ -855,11 +1118,15 @@ __global__ void __launch_bounds__(threads(ROWS), 1)
   const uint32_t bars = b_s + S * STAGE;  // full[S], empty[S], a_full
   const uint32_t a_full = bars + 16 * S;
   // kTri: the column-statistics buffers, after the barriers' 256 bytes
+  // (kTopK: its tile buffers there)
   ColStage* cst =
       reinterpret_cast<ColStage*>(smem_raw + (bars + 256 - smem_u32(smem_raw)));
   const int tid = threadIdx.x;
   const int row0 = blockIdx.x * ROWS;
   const int n_sub = p.n / BN;
+  // the walked sub-blocks: all, or kTopK's split blockIdx.y
+  const int sb_lo = is_topk(MODE) ? split_sb(p, blockIdx.y) : 0;
+  const int sb_hi = is_topk(MODE) ? split_sb(p, blockIdx.y + 1) : n_sub;
 
   if (MODE == kTri) {
     for (int i = tid; i < col_bytes(p.col_bufs) / 4; i += NTR)
@@ -897,7 +1164,7 @@ __global__ void __launch_bounds__(threads(ROWS), 1)
       const bool a_box = STREAM_A && row0 < p.m;
       int st = 0;
       uint32_t ph = 0;
-      for (int sb = 0; sb < n_sub; sb += STREAM_A ? 2 : 1) {
+      for (int sb = sb_lo; sb < sb_hi; sb += STREAM_A ? 2 : 1) {
         for (int kb = 0; kb < nkb; ++kb) {
           mbar_wait(bars + 8 * (S + st), ph ^ 1);
           mbar_expect_tx(bars + 8 * st, STREAM_A && !a_box ? STAGE - BOX : STAGE);
@@ -965,7 +1232,7 @@ __global__ void __launch_bounds__(threads(ROWS), 1)
       // epilogues in column order.  A block with no rows (the grid is
       // whole clusters) walks the ring all the same.
       const bool has_rows = row0 < p.m;
-      for (int sb = 0; sb < n_sub; sb += 2) {
+      for (int sb = sb_lo; sb < sb_hi; sb += 2) {
         for (int kb = 0; kb < nkb; ++kb) mma_pair(acc0, acc1, ring, a_wg, kb, lane);
         wgmma_wait<0>();
         release(ring, ring.prev, lane);
@@ -982,12 +1249,12 @@ __global__ void __launch_bounds__(threads(ROWS), 1)
       // sub-block's first stage, finish and consume the current one, issue
       // the rest (n_sub is even: n is a multiple of tile, tile of 256).
       for (int kb = 0; kb < nkb; ++kb) mma_stage<ROWS>(acc0, ring, a_wg, kb, lane);
-      for (int sb = 0;; sb += 2) {
+      for (int sb = sb_lo;; sb += 2) {
         mma_stage<ROWS>(acc1, ring, a_wg, 0, lane);  // sub-block sb is complete
         fence_regs(acc0);
         epilogue<MODE, TIE>(r, acc0, p, sb, row_lo, rloc, lane, cst);
         for (int kb = 1; kb < nkb; ++kb) mma_stage<ROWS>(acc1, ring, a_wg, kb, lane);
-        if (sb + 2 == n_sub) break;
+        if (sb + 2 == sb_hi) break;
         mma_stage<ROWS>(acc0, ring, a_wg, 0, lane);  // sub-block sb + 1 is complete
         fence_regs(acc1);
         epilogue<MODE, TIE>(r, acc1, p, sb + 1, row_lo, rloc, lane, cst);
@@ -996,7 +1263,7 @@ __global__ void __launch_bounds__(threads(ROWS), 1)
       wgmma_wait<0>();
       if (lane == 0) mbar_arrive(ring.empty(ring.prev));
       fence_regs(acc1);
-      epilogue<MODE, TIE>(r, acc1, p, n_sub - 1, row_lo, rloc, lane, cst);
+      epilogue<MODE, TIE>(r, acc1, p, sb_hi - 1, row_lo, rloc, lane, cst);
     }
 
     if (MODE == kCount) {  // the per-thread counts, summed across the quad
@@ -1008,6 +1275,10 @@ __global__ void __launch_bounds__(threads(ROWS), 1)
         const int gr = row_lo + 8 * h;
         if ((lane & 3) == 0 && gr < p.m) p.counts[gr] = r.counts[h];
       }
+      return;
+    }
+    if constexpr (is_topk(MODE)) {  // the merge writes the outputs
+      topk_split_out(r, p, row_lo, lane);
       return;
     }
 
@@ -1107,7 +1378,8 @@ inline Plan plan(int d) {
   constexpr int STAGE = stage_bytes(STREAM_A);
   const int nkb = d / BK;
   const int a_bytes = STREAM_A ? 0 : nkb * ROWS * BK * 2;
-  const int room = SMEM_LIMIT - 1024 - 256 - a_bytes;  // alignment, barriers
+  // alignment, barriers, kTopK's tile buffers
+  const int room = SMEM_LIMIT - 1024 - 256 - a_bytes - topk_bytes(MODE);
   Plan q{room / STAGE < MAX_STAGES ? room / STAGE : MAX_STAGES, 0, 0};
   if (MODE == kTri) {
     // as deep a ring as fits beside enough column buffers (see epilogue):
@@ -1118,7 +1390,7 @@ inline Plan plan(int d) {
     }
   }
   q.smem = 1024 + a_bytes + static_cast<size_t>(q.stages) * STAGE + 256 +
-           col_bytes(q.col_bufs);
+           col_bytes(q.col_bufs) + topk_bytes(MODE);
   return q;
 }
 

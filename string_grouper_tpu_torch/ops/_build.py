@@ -28,7 +28,8 @@ NVCC_FLAGS = [
     "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
 ]
 KERNELS = ("p1_fused_closed2", "p1_fused_chain", "p1_tri_fused",
-           "device_hash_codes", "p1_mm_floor", "p1_closed2_variant")
+           "device_hash_codes", "p1_mm_floor", "p1_closed2_variant",
+           "p1_fused_topk")
 
 _p = ctypes.c_void_p
 _i = ctypes.c_int64
@@ -54,6 +55,10 @@ _ARGTYPES = {
     # tmax, bound, vbuf, stream
     "p1_closed2_variant": [_p, _p, _f, _i, _i, _i, _i, _i, _i, _i,
                            _p, _p, _p, _p, _p, _p],
+    # A, B, thr, m, n, d, tile, cand_c, k_tile, splits, ship, counts, tmax,
+    # bound, the splits' v, c, meta and tb, stream
+    "p1_fused_topk": [_p, _p, _f, _i, _i, _i, _i, _i, _i, _i,
+                      _p, _p, _p, _p, _p, _p, _p, _p, _p],
 }
 
 _LOCK = threading.Lock()

@@ -28,6 +28,9 @@ launches per (wrapper, device), so a mesh run can show where each ran.
   scan's product with the qualified count only, and ``p1_fused_closed2``
   under its tie-rule and block-rows switches.  No path of the matcher
   launches them; ``tools/ab_p1_epilogue.py`` and chip_smoke.py time them.
+* ``p1_fused_topk`` (csrc/p1_fused_topk.cu) replaces the XLA tile body
+  ``_ub_topk_scan`` (string_grouper_tpu/ops/matcher.py:703) at
+  4 <= k_tile <= 32: escalation's re-match, mode kTopK of the same scan.
 
 The plain versions multiply f32 upcasts of bf16 inputs under
 ``ieee_f32_matmul()``: exact products, f32 sums, whatever the caller set
@@ -357,6 +360,150 @@ def p1_fused_chain(a_hash: torch.Tensor, b_chunk: torch.Tensor,
     _build.check("p1_fused_chain", err)
     _launched("p1_fused_chain", dev)
     return ship, counts, tmax, bound, tmax.max(), state
+
+
+# ------------------------------------------- escalation's top-kt re-match
+#: the tile extraction widths ``p1_fused_topk`` is built for
+TOPK_WIDTHS = (4, 8, 16, 32)
+#: the widest running top-C it takes
+TOPK_MAX_C = 4096
+#: most column splits of one launch, and the most bytes of their running
+#: top-C lists (the merge's input)
+TOPK_MAX_SPLITS = 16
+TOPK_SPLIT_BYTES = 1 << 29
+
+
+def p1_fused_topk_supported(m: int, n_pad: int, d: int, tile: int,
+                            cand_c: int, k_tile: int) -> bool:
+    """Shapes ``p1_fused_topk`` takes (the torch-op body covers the rest):
+    a width it is built for, A resident (d a multiple of 128 up to 512),
+    whole 128-row blocks, whole tiles of whole pairs of 128-column
+    sub-blocks, and a top-C a multiple of 8 up to ``TOPK_MAX_C``."""
+    return (
+        k_tile in TOPK_WIDTHS
+        and d % 128 == 0
+        and 0 < d <= 512
+        and m > 0
+        and m % 128 == 0
+        and n_pad > 0
+        and n_pad % tile == 0
+        and tile % 256 == 0
+        and 8 <= cand_c <= TOPK_MAX_C
+        and cand_c % 8 == 0
+    )
+
+
+def topk_splits(m: int, n_pad: int, tile: int, cand_c: int, sms: int) -> int:
+    """Column splits of one ``p1_fused_topk`` launch: a block walks 128
+    rows against one split (whole tiles) of the columns, so a job of few
+    rows still fills the ``sms`` multiprocessors.  The count that gives the
+    fewest waves of full walks (blocks x splits over ``sms``, rounded up,
+    over splits), the smallest such, within ``TOPK_MAX_SPLITS``, the tiles,
+    and ``TOPK_SPLIT_BYTES`` of split lists."""
+    blocks, tiles = -(-m // 128), n_pad // tile
+    best, best_t = 1, -(-blocks // sms)
+    for splits in range(2, min(TOPK_MAX_SPLITS, tiles) + 1):
+        if splits * m * cand_c * 8 > TOPK_SPLIT_BYTES:
+            break
+        t = -(-blocks * splits // sms) / splits
+        if t < best_t:
+            best, best_t = splits, t
+    return best
+
+
+def p1_fused_topk_plain(a_hash, b_hash, thr_eff: float, tile: int = 4096,
+                        cand_c: int = 64, k_tile: int = 4):
+    """Plain PyTorch version of ``p1_fused_topk``: per logical tile of
+    ``tile`` columns, the f32 product of the bf16 inputs, threshold, the
+    qualified count, and the tile's top ``k_tile`` by value descending,
+    the first column winning ties (a stable sort), merged into the running
+    top-C by a stable sort of (running, tile's) -- so a new entry goes
+    after equal old ones.  The drop bound is the k_tile-th value of a tile
+    whose count exceeds k_tile, and the C-th running value once more than
+    C finite candidates were extracted.  Returns ``(ship, counts, tmax,
+    bound, max_cnt)``, as ``p1_fused_closed2``."""
+    m = a_hash.shape[0]
+    dev = a_hash.device
+    a = a_hash.float()
+    thr = float(thr_eff)
+    v = torch.full((m, cand_c), _NEG, dtype=torch.float32, device=dev)
+    c = torch.zeros((m, cand_c), dtype=torch.int32, device=dev)
+    counts = torch.zeros(m, dtype=torch.int32, device=dev)
+    tmax = torch.zeros(m, dtype=torch.int32, device=dev)
+    nfin = torch.zeros(m, dtype=torch.int32, device=dev)
+    tb = torch.full((m,), _NEG, dtype=torch.float32, device=dev)
+    for j in range(b_hash.shape[0] // tile):
+        with ieee_f32_matmul():
+            s = a @ b_hash[j * tile:(j + 1) * tile].float().T
+        qual = s >= thr
+        cnt = qual.sum(1, dtype=torch.int32)
+        tv, ti = torch.sort(torch.where(qual, s, _NEG), dim=1, descending=True,
+                            stable=True)
+        tv, ti = tv[:, :k_tile], ti[:, :k_tile].to(torch.int32) + j * tile
+        counts += cnt
+        tmax = torch.maximum(tmax, cnt)
+        nfin += torch.clamp(cnt, max=k_tile)
+        tb = torch.maximum(tb, torch.where(cnt > k_tile, tv[:, -1], _NEG))
+        v, idx = torch.sort(torch.cat([v, tv], 1), dim=1, descending=True,
+                            stable=True)
+        v = v[:, :cand_c]
+        c = torch.gather(torch.cat([c, ti], 1), 1, idx[:, :cand_c])
+    trunc = torch.where(nfin > cand_c, v[:, cand_c - 1], _NEG)
+    ship = torch.where(v > _NEG, c, -1)
+    return ship, counts, tmax, torch.maximum(tb, trunc), tmax.max()
+
+
+def p1_fused_topk(a_hash: torch.Tensor, b_hash: torch.Tensor, thr_eff: float,
+                  tile: int = 4096, cand_c: int = 64, k_tile: int = 4):
+    """Escalation's phase-1 re-match at a tile extraction width ``k_tile``
+    of 4, 8, 16 or 32: ``(ship, counts, tmax, bound, max_cnt)`` as
+    ``p1_fused_closed2`` -- the (m, cand_c) candidate matrix with -1
+    sentinels and each row's valid entries a descending prefix, per-row
+    qualified counts, largest per-tile counts, drop bounds, and the largest
+    per-tile count (device scalar).  The column ids of -inf slots are
+    unspecified before the sentinels (the kernel merges only tiles with a
+    qualified column).  CUDA tensors launch csrc/p1_fused_topk.cu (what
+    bounds it and its design are in its source); CPU tensors run the plain
+    version."""
+    m, d = a_hash.shape
+    n = b_hash.shape[0]
+    if not a_hash.is_cuda:
+        return p1_fused_topk_plain(a_hash, b_hash, thr_eff, tile, cand_c,
+                                   k_tile)
+    _check_tensors("p1_fused_topk", a_hash, b_hash)
+    if a_hash.dtype != torch.bfloat16 or b_hash.dtype != torch.bfloat16:
+        raise TypeError("p1_fused_topk: a_hash and b_hash must be bfloat16")
+    if b_hash.shape[1] != d:
+        raise ValueError("p1_fused_topk: hash widths differ")
+    if not p1_fused_topk_supported(m, n, d, tile, cand_c, k_tile):
+        raise ValueError(
+            f"p1_fused_topk: unsupported shape m={m} n={n} d={d} tile={tile} "
+            f"cand_c={cand_c} k_tile={k_tile}"
+        )
+    lib = _build.load("p1_fused_topk")
+    dev = a_hash.device
+    splits = topk_splits(m, n, tile, cand_c,
+                         torch.cuda.get_device_properties(dev).multi_processor_count)
+    ship = torch.empty((m, cand_c), dtype=torch.int32, device=dev)
+    counts = torch.empty(m, dtype=torch.int32, device=dev)
+    tmax = torch.empty(m, dtype=torch.int32, device=dev)
+    bound = torch.empty(m, dtype=torch.float32, device=dev)
+    # the splits' running top-C lists and counters, joined by the merge
+    v_split = torch.empty((splits, m, cand_c), dtype=torch.float32, device=dev)
+    c_split = torch.empty((splits, m, cand_c), dtype=torch.int32, device=dev)
+    meta_split = torch.empty((splits, m, 3), dtype=torch.int32, device=dev)
+    tb_split = torch.empty((splits, m), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.p1_fused_topk(
+            a_hash.data_ptr(), b_hash.data_ptr(), float(thr_eff), m, n, d,
+            tile, cand_c, k_tile, splits, ship.data_ptr(), counts.data_ptr(),
+            tmax.data_ptr(), bound.data_ptr(), v_split.data_ptr(),
+            c_split.data_ptr(), meta_split.data_ptr(), tb_split.data_ptr(),
+            _stream(a_hash),
+        )
+    _build.check("p1_fused_topk", err)
+    _launched("p1_fused_topk", dev)
+    return ship, counts, tmax, bound, tmax.max()
 
 
 # ------------------------------------- the epilogue's A/B: floor and variant

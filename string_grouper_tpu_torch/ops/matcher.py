@@ -20,10 +20,12 @@
       values are non-negative, so the hashed scores bound the exact cosine
       from above and the threshold drops no true match.  On CUDA the default
       (k_tile=2, thresholded) pass is the fused kernel ``p1_fused_closed2``
-      (matmul + threshold + closed-form top-2 + running top-C); the torch-op
-      tile body ``_ub_topk_scan`` serves the CPU, escalation re-matches at
-      k_tile > 2, thresholdless runs, and every run under
-      ``SG_TPU_FUSED=0`` (``fused_enabled``).
+      (matmul + threshold + closed-form top-2 + running top-C), and
+      escalation's re-matches at k_tile 4-32 run its top-kt form
+      ``p1_fused_topk`` (``use_fused_topk``); the torch-op tile body
+      ``_ub_topk_scan`` serves the CPU, wider escalation widths,
+      thresholdless runs, and every run under ``SG_TPU_FUSED=0``
+      (``fused_enabled``).
   download: candidate column ids only (ragged-prefix-compacted, 20-bit
       packed, one transfer per segment, on a copy stream that waits on the
       segment's event) plus per-row metadata with an upper bound on every
@@ -60,6 +62,8 @@ from .kernels import (
     p1_fused_chain,
     p1_fused_closed2,
     p1_fused_supported,
+    p1_fused_topk,
+    p1_fused_topk_supported,
 )
 from .rescore import rescore_pairs_fp64
 
@@ -231,13 +235,14 @@ def _chunked_p1_size_ok(n_right: int) -> bool:
 
 
 def fused_enabled() -> bool:
-    """Whether the fused phase-1 kernel ``p1_fused_closed2`` (and its
-    chained form ``p1_fused_chain``) runs for the default (k_tile = 2,
-    thresholded) configuration on the card, read per call.
-    ``SG_TPU_FUSED=0`` forces the torch-op tile body everywhere (the JAX
-    package's knob): the single-device scan and its kt = 2 escalation, the
-    chunked pipeline, the mesh tier and the multi-process tiers' scan.  The
-    two give the same pairs; the kernel is the faster."""
+    """Whether the fused phase-1 kernels run on the card, read per call:
+    ``p1_fused_closed2`` (and its chained form ``p1_fused_chain``) for the
+    default (k_tile = 2, thresholded) configuration, ``p1_fused_topk`` for
+    escalation's re-matches at k_tile 4-32.  ``SG_TPU_FUSED=0`` forces the
+    torch-op tile body everywhere (the JAX package's knob): the
+    single-device scan and its escalation, the chunked pipeline, the mesh
+    tier and the multi-process tiers' scan.  The two give the same pairs;
+    the kernels are the faster."""
     return os.environ.get("SG_TPU_FUSED", "1") != "0"
 
 
@@ -262,6 +267,22 @@ def use_fused(device: torch.device, k_tile: int, thr: float, m: int, n: int,
         and k_tile == 2
         and thr > 0
         and p1_fused_supported(m, n, d, tile, cand_c)
+    )
+
+
+def use_fused_topk(device: torch.device, k_tile: int, thr: float, m: int,
+                   n: int, d: int, tile: int, cand_c: int) -> bool:
+    """Whether an escalation re-match of ``m`` left rows (padded) against
+    ``n`` right rows on ``device`` runs the kernel ``p1_fused_topk``: on
+    the card, switch on, ``k_tile`` 4-32 with a threshold, and a shape the
+    kernel takes.  The rule of the single-device escalation (``run_rows``);
+    k_tile = 2 is ``use_fused``'s, and the torch-op body runs otherwise."""
+    return (
+        _on_card(device)
+        and fused_enabled()
+        and 4 <= k_tile <= 32
+        and thr > 0
+        and p1_fused_topk_supported(m, n, d, tile, cand_c, k_tile)
     )
 
 
@@ -1365,20 +1386,32 @@ def _phase1_single(
         )
 
     def run_rows(row_idx: np.ndarray, thr_eff, cand_c, k_tile,
-                 budget_hint: Optional[int] = None, defer: bool = False):
+                 budget_hint: Optional[int] = None, defer: bool = False,
+                 stats: Optional[dict] = None):
         """Phase 1 restricted to the given left rows (hot-row escalation):
         device-gathers those rows' hash vectors and matches them at a larger
         candidate width.  Returns ``(rows_pos, cols, bound)`` where rows_pos
         indexes into ``row_idx``; ``defer=True`` dispatches the device work
-        now and returns a zero-arg ``finish()`` for the download."""
+        now and returns a zero-arg ``finish()`` for the download.  Rows that
+        run on ``p1_fused_topk`` (padded to its 128-row blocks, not to
+        whole chunks) add to ``stats["esc_kernel_rows"]``."""
         m = len(row_idx)
-        m_p = -(-m // chunk) * chunk
+        m_k = -(-m // 128) * 128
+        topk = use_fused_topk(device, k_tile, thr_eff, m_k, n_right_p,
+                              hash_dim, tile, cand_c)
+        m_p = m_k if topk else -(-m // chunk) * chunk
         idx = np.zeros(m_p, dtype=np.int64)
         idx[:m] = row_idx
         a_sel = _gather_pad_rows(dense_a(), _to_device(idx, device), m, m_p)
         thr = float(thr_eff)
-        if use_fused(device, k_tile, thr_eff, m_p, n_right_p, hash_dim, tile,
-                     cand_c):
+        if topk:
+            cols2, counts, _tmax, ub_last, _ = p1_fused_topk(
+                a_sel, dense_b(), thr, tile=tile, cand_c=cand_c, k_tile=k_tile,
+            )
+            if stats is not None:
+                stats["esc_kernel_rows"] = stats.get("esc_kernel_rows", 0) + m
+        elif use_fused(device, k_tile, thr_eff, m_p, n_right_p, hash_dim, tile,
+                       cand_c):
             # kt=2 escalation buckets (rows unsafe only via top-C
             # truncation) re-match on the fused kernel too.
             cols2, counts, _tmax, ub_last, _ = p1_fused_closed2(
@@ -1546,7 +1579,7 @@ def adaptive_topn(
         stats = {}
     stats.update(
         p1_wait=0.0, rescore=0.0, select=0.0, esc_wait=0.0,
-        rescore_wait=0.0, rounds=0, pairs_scored=0,
+        rescore_wait=0.0, rounds=0, pairs_scored=0, esc_kernel_rows=0,
     )
 
     def split_jobs(idx, tmax, counts, c):
@@ -1595,7 +1628,7 @@ def adaptive_topn(
         with span("match.esc_dispatch", stats, "esc_wait"):
             fin = phase1_run_rows(
                 g, effective_threshold(min_similarity), c_big, kt_use,
-                budget_hint=int(counts[g].sum()), defer=True,
+                budget_hint=int(counts[g].sum()), defer=True, stats=stats,
             )
         return g, fin
 

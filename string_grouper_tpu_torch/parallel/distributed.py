@@ -405,12 +405,14 @@ def _phase1_distributed(
         )
 
     def run_rows(row_idx: np.ndarray, thr_eff, cand_c, k_tile,
-                 budget_hint: Optional[int] = None, defer: bool = False):
+                 budget_hint: Optional[int] = None, defer: bool = False,
+                 stats: Optional[dict] = None):
         """Hot-row escalation under the mesh: gather the unsafe rows' hash
         vectors on the device and re-match only them at larger per-shard
         widths (the torch-op body on every shard, as in the JAX tier), so
         one skewed row never forces a full-corpus re-match.  ``defer=True``
-        dispatches now and returns the download as a zero-arg callable."""
+        dispatches now and returns the download as a zero-arg callable.
+        No row runs on ``p1_fused_topk``, so ``stats`` gains nothing."""
         m = len(row_idx)
         m_p = -(-m // sc) * sc
         idx = np.zeros(m_p, dtype=np.int64)

@@ -163,10 +163,11 @@ def test_engine_reads_last_stats_when_pairs_carry_none(monkeypatch):
                    for k, v in TM.LAST_STATS.items()}
 
 
-#: ``timings`` keys only the port has: its escalation counters per rung,
-#: the calling thread's wait for the scoring worker and, on the replicated
-#: tier, each rank's matcher stats
-PORT_ONLY = re.compile(r"match\.(mh_local_\w+|esc_rows_r\d+_kt\d+|rescore_wait)")
+#: ``timings`` keys only the port has: its escalation counters per rung and
+#: of the rows run on ``p1_fused_topk``, the calling thread's wait for the
+#: scoring worker and, on the replicated tier, each rank's matcher stats
+PORT_ONLY = re.compile(
+    r"match\.(mh_local_\w+|esc_rows_r\d+_kt\d+|esc_kernel_rows|rescore_wait)")
 
 
 @pytest.mark.parametrize("tier", [None, True, "sharded"])

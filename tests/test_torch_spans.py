@@ -160,7 +160,10 @@ def test_timings_keys_before_the_spans_plus_frame_and_rescore_wait():
     secs = _fit_and_frame().timings.seconds
     rungs = {k for k in secs if ESC_ROWS.fullmatch(k)}
     assert rungs
-    assert set(secs) - rungs == KEYS_BEFORE | {"frame", "match.rescore_wait"}
+    # and the count of escalated rows that ran on p1_fused_topk: none here
+    assert set(secs) - rungs == KEYS_BEFORE | {"frame", "match.rescore_wait",
+                                               "match.esc_kernel_rows"}
+    assert secs["match.esc_kernel_rows"] == 0
     assert isinstance(secs["match.rounds"], int)
     assert isinstance(secs["match.pairs_scored"], int)
 
