@@ -1385,12 +1385,12 @@ def spy_routes(MH, link=PEAK_NVLINK):
         """(bytes between ranks, bytes across PCIe) of one call."""
         rank, world = dist.get_rank(), dist.get_world_size()
         if name == "_replicate_rows":
-            block, counts, _n_rows = args
+            block, counts = args[:2]
             row = block.shape[1] * block.element_size()
             if route == "direct":
                 return int(counts.sum() - counts[rank]) * row, 0
             return 0, int(counts.sum()) * row
-        cols, _bound, _tmax, _starts, counts = args
+        cols, counts = args[0], args[4]
         own, w = int(counts[rank]), cols.shape[1]
         if route == "direct":
             peers = max(int(counts.sum()) - own, (world - 1) * own) * (w + 2) * 4

@@ -68,6 +68,15 @@ raises.  ``ROUTE_CALLS`` counts the collectives each route runs, keyed
 by ``(route, op)``.  Without a group both routes are the identity and
 run none.
 
+What the sharded tier moves between ranks is timed and counted in its
+stage dict (the engine's ``timings`` as ``match.mh_<key>``): the
+replication and the exchanges (``replicate_s`` / ``exchange_s``, the
+ranges ``sg.match.mh_replicate`` / ``.mh_exchange``), the ring's
+broadcasts (``ring_bcast_s``, ``sg.match.mh_ring_bcast``), the bytes of
+the buffers this rank hands each kind of collective, sent and received
+(``replicate_bytes``, ``exchange_bytes``, ``ring_bytes``; 0 where no
+collective ran), and the ``world`` and the rank's ``slots``.
+
 Every decision that could send one rank into a collective
 its peers skip is made global first (the capacity checks, the ring's
 ``need`` vector, the ladder's continuation, the mesh validation and
@@ -81,6 +90,7 @@ from __future__ import annotations
 import os
 from collections import Counter
 from dataclasses import replace
+from datetime import timedelta
 from typing import Optional, Tuple
 
 import numpy as np
@@ -147,14 +157,28 @@ def _world() -> Tuple[int, int]:
 def _host_group():
     """The gloo group that carries host values: the default group (None)
     when its backend is gloo, else one gloo group over every rank, made on
-    first use (every rank reaches it in the same collective order)."""
+    first use (every rank reaches it in the same collective order) with
+    the default group's timeout, so that a lost peer fails its host
+    collectives as soon as its device collectives."""
     if dist.get_backend() == "gloo":
         return None
     world = dist.group.WORLD
     group = _HOST_GROUPS.get(world)
     if group is None:
-        group = _HOST_GROUPS[world] = dist.new_group(backend="gloo")
+        group = _HOST_GROUPS[world] = dist.new_group(
+            backend="gloo", timeout=_group_timeout(world))
     return group
+
+
+def _group_timeout(group) -> Optional[timedelta]:
+    """The timeout ``group`` was made with, read from its first backend's
+    options; None (the backend's default) where torch does not say."""
+    for dev in getattr(group, "_device_types", ()):
+        try:
+            return group._get_backend(dev).options._timeout
+        except (AttributeError, RuntimeError):
+            continue
+    return None
 
 
 def _bytes_of(x: np.ndarray) -> torch.Tensor:
@@ -221,6 +245,12 @@ def reset_route_calls() -> None:
     ROUTE_CALLS.clear()
 
 
+def _count(t: Optional[dict], key: str, n: int) -> None:
+    """Add ``n`` into the counter ``t[key]`` (nothing without ``t``)."""
+    if t is not None:
+        t[key] = t.get(key, 0) + int(n)
+
+
 def _route(device: torch.device) -> str:
     """``"direct"`` when a group is initialized and the default group's
     backend carries ``device``'s type (``nccl`` carries ``cuda``, ``gloo``
@@ -259,18 +289,20 @@ def _all_gather_single(out: torch.Tensor, inp: torch.Tensor) -> None:
 
 
 def _replicate_rows(block: torch.Tensor, counts: np.ndarray,
-                    n_rows: int) -> torch.Tensor:
+                    n_rows: int, t: Optional[dict] = None) -> torch.Tensor:
     """``(n_rows, d)`` on ``block``'s device: every rank's first
     ``counts[rank]`` rows of its ``block`` in rank order, zero rows after
     (the JAX tier's replicated gather of a sharded device array), on the
-    route of :func:`_route` (the range ``sg.match.mh_replicate``)."""
-    with span("match.mh_replicate"):
+    route of :func:`_route` (the range ``sg.match.mh_replicate``; its
+    seconds into ``t["replicate_s"]``, its buffers' bytes into
+    ``t["replicate_bytes"]``)."""
+    with span("match.mh_replicate", t, "replicate_s"):
         if _route(block.device) == "direct":
-            return _replicate_direct(block, counts, n_rows)
-        return _replicate_host(block, counts, n_rows)
+            return _replicate_direct(block, counts, n_rows, t)
+        return _replicate_host(block, counts, n_rows, t)
 
 
-def _replicate_direct(block, counts, n_rows):
+def _replicate_direct(block, counts, n_rows, t=None):
     """One all-gather on ``block``'s device: each rank's rows padded to
     ``max(counts)``, moved as bytes so the transport cannot change a
     bit, then copied in rank order into the preallocated result."""
@@ -283,6 +315,7 @@ def _replicate_direct(block, counts, n_rows):
     recv = block.new_empty((size * width, d))
     _all_gather_single(recv.view(torch.uint8), send.view(torch.uint8))
     ROUTE_CALLS["direct", "replicate"] += 1
+    _count(t, "replicate_bytes", send.nbytes + recv.nbytes)
     out = block.new_zeros((n_rows, d))
     lo = 0
     for s in range(size):
@@ -292,7 +325,7 @@ def _replicate_direct(block, counts, n_rows):
     return out
 
 
-def _replicate_host(block, counts, n_rows):
+def _replicate_host(block, counts, n_rows, t=None):
     """One broadcast per source rank through the host, uploaded into the
     preallocated result, so the host holds one rank's block at a time."""
     rank, size = _world()
@@ -311,6 +344,7 @@ def _replicate_host(block, counts, n_rows):
                                      dtype=torch.uint8))
             dist.broadcast(host, src=s, group=_host_group())
             ROUTE_CALLS["host", "replicate"] += 1
+            _count(t, "replicate_bytes", host.nbytes)
             if s != rank:
                 out[lo:lo + cnt] = host.to(block.device).view(block.dtype)
         lo += cnt
@@ -329,7 +363,7 @@ def _all_to_all(recv: torch.Tensor, wire: torch.Tensor, counts: np.ndarray,
 
 def _exchange_rows(cols: torch.Tensor, bound: torch.Tensor,
                    tmax: torch.Tensor, starts: np.ndarray,
-                   counts: np.ndarray):
+                   counts: np.ndarray, t: Optional[dict] = None):
     """The JAX tier's ``all_gather`` over ``mp`` and its ``pmax``,
     delivering to each rank only its own rows, in one all-to-all on the
     route of :func:`_route`.
@@ -344,8 +378,10 @@ def _exchange_rows(cols: torch.Tensor, bound: torch.Tensor,
     peer: the columns concatenate along the width in rank order, bound and
     tmax reduce by an elementwise max.  Returns host ``(cols, bound,
     tmax)`` of this rank's rows, downloaded once (the range
-    ``sg.match.mh_exchange``)."""
-    with span("match.mh_exchange"):
+    ``sg.match.mh_exchange``; its seconds into ``t["exchange_s"]``, the
+    bytes of the all-to-all's send and receive buffers into
+    ``t["exchange_bytes"]``)."""
+    with span("match.mh_exchange", t, "exchange_s"):
         rank, size = _world()
         owners = np.flatnonzero(counts)
         lo = int(starts[owners[0]]) if len(owners) else 0
@@ -373,6 +409,9 @@ def _exchange_rows(cols: torch.Tensor, bound: torch.Tensor,
             _all_to_all(recv, wire, counts,
                         None if route == "direct" else _host_group())
             ROUTE_CALLS[route, "exchange"] += 1
+            _count(t, "exchange_bytes",
+                   wire.numel() * wire.element_size()
+                   + recv.numel() * recv.element_size())
         recv = recv.view(size, mine, w + 2)
         flat = torch.cat([
             recv[:, :, :w].permute(1, 0, 2).reshape(-1),
@@ -386,7 +425,8 @@ def _exchange_rows(cols: torch.Tensor, bound: torch.Tensor,
 
 def _phase1_scan(a_rows: dict, b_slots: list, thr: float,
                  starts: np.ndarray, counts: np.ndarray, *, tile: int,
-                 chunk: int, cand_c: int, k_tile: int):
+                 chunk: int, cand_c: int, k_tile: int,
+                 t: Optional[dict] = None):
     """The phase-1 scan of the multi-process tiers (JAX's
     ``_make_phase1_scan`` over the ``(1, n_dev)`` mesh): the same left rows
     on every rank against this rank's slots, then :func:`_exchange_rows`.
@@ -400,7 +440,8 @@ def _phase1_scan(a_rows: dict, b_slots: list, thr: float,
     by chunk otherwise.  The slots merge on slot 0 in slot order (columns
     concatenated along the width, bound and tmax by an elementwise maximum:
     the mesh tier's ``_dist_match`` at dp = 1), so the width is global
-    device order once the exchange adds the ranks."""
+    device order once the exchange adds the ranks.  ``t``: the stage dict
+    the exchange times and counts into."""
     rank, _size = _world()
     k = len(b_slots)
     per_dev, d = b_slots[0].shape
@@ -417,7 +458,7 @@ def _phase1_scan(a_rows: dict, b_slots: list, thr: float,
         parts.append([t.to(home) for t in (cols, tmax, bound)])
     cols = torch.cat([p[0] for p in parts], 1)
     tmax, bound = (torch.stack([p[i] for p in parts]).amax(0) for i in (1, 2))
-    return _exchange_rows(cols, bound, tmax, starts, counts)
+    return _exchange_rows(cols, bound, tmax, starts, counts, t)
 
 
 def _slot_blocks(block: torch.Tensor, slots: list) -> list:
@@ -816,12 +857,17 @@ class _RingRescorer:
     """Exact phase-2 scoring against a RING of remote right-ELL shards.
 
     Each ``score(rows_local, cols_global)`` call runs up to ``world``
-    broadcast rounds -- every rank MUST make the same number of calls, even
+    broadcast rounds, one for each shard that some rank other than its
+    owner needs -- every rank MUST make the same number of calls, even
     with zero local pairs.  Peak resident: the local shards plus ONE
-    visiting shard (tracked in ``peak_visit_bytes``)."""
+    visiting shard (tracked in ``peak_visit_bytes``).  The broadcasts,
+    their waits included, are the range ``sg.match.mh_ring_bcast``, timed
+    into ``t["ring_bcast_s"]``; their bytes, sent or received, count into
+    ``t["ring_bytes"]``."""
 
     def __init__(self, left_ell: EllMatrix, right_ell: EllMatrix,
-                 right_counts: np.ndarray, acc_dtype):
+                 right_counts: np.ndarray, acc_dtype,
+                 t: Optional[dict] = None):
         self.left = left_ell
         self.right = right_ell
         self.right_counts = right_counts
@@ -832,7 +878,8 @@ class _RingRescorer:
         self.nproc = len(right_counts)
         self.n_visit_max = int(right_counts.max())
         self.peak_visit_bytes = 0
-        self.pid = _world()[0]
+        self.pid, self.world = _world()
+        self.t = t
 
     def score(self, rows_local: np.ndarray,
               cols_global: np.ndarray) -> np.ndarray:
@@ -841,25 +888,26 @@ class _RingRescorer:
         owner = (
             np.searchsorted(self.right_starts, cols_global, side="right") - 1
         )
-        # One tiny collective agrees which shards ANY rank needs this call,
-        # so rounds nobody needs skip their two full-shard broadcasts.
+        # One tiny collective agrees which shards a rank other than their
+        # owner needs this call, so the other rounds skip their two
+        # full-shard broadcasts.
         need_local = np.zeros(self.nproc, dtype=np.int64)
-        if len(owner):
-            need_local[np.unique(owner)] = 1
+        remote = np.unique(owner)
+        need_local[remote[remote != self.pid]] = 1
         need = _allgather_host(need_local).max(axis=0)
         w = self.right.width
         for s in range(self.nproc):
-            if not need[s]:
-                continue
             sel = owner == s
             if s == self.pid and sel.any():
-                # Local shard: no transfer (the broadcast below still runs
-                # in lock-step on every rank).
+                # Local shard: no transfer (a broadcast below still runs in
+                # lock-step on every rank when a peer needs it).
                 sims[sel] = rescore_pairs_fp64(
                     self.left, self.right, rows_local[sel],
                     cols_global[sel] - self.right_starts[s],
                     acc_dtype=self.acc,
                 )
+            if not need[s]:
+                continue
             ids_p = _pad_block(
                 self.right.ids if s == self.pid
                 else np.zeros((0, w), np.int32),
@@ -870,8 +918,11 @@ class _RingRescorer:
                 else np.zeros((0, w), np.float64),
                 self.n_visit_max,
             )
-            ids_v = _broadcast_host_from(ids_p, s)
-            vals_v = _broadcast_host_from(vals_p, s)
+            with span("match.mh_ring_bcast", self.t, "ring_bcast_s"):
+                ids_v = _broadcast_host_from(ids_p, s)
+                vals_v = _broadcast_host_from(vals_p, s)
+            if self.world > 1:
+                _count(self.t, "ring_bytes", ids_p.nbytes + vals_p.nbytes)
             if s != self.pid and sel.any():
                 visiting = EllMatrix(
                     ids=ids_v[: self.right_counts[s]],
@@ -922,6 +973,10 @@ def multihost_sharded_fit_pairs(
         slots = _rank_slots(config.mesh, resolve_device(config.device))
         k = len(slots)
         n_dev = nproc * k
+        t["world"], t["slots"] = nproc, k
+        for key in ("replicate", "exchange", "ring"):
+            t[f"{key}_bytes"] = 0
+        t["replicate_s"] = t["exchange_s"] = t["ring_bcast_s"] = 0.0
         n_m = len(master)
         right_series = master if is_self else duplicates
         n_right = len(right_series)
@@ -998,7 +1053,7 @@ def multihost_sharded_fit_pairs(
         )
         n_left_pad = -(-n_m // chunk) * chunk
         a_dense = _slot_copies(
-            _replicate_rows(a_local, left_counts, n_left_pad), b_slots
+            _replicate_rows(a_local, left_counts, n_left_pad, t), b_slots
         )
         del b_local, a_local
 
@@ -1017,7 +1072,7 @@ def multihost_sharded_fit_pairs(
         kt0 = initial_k_tile(min_similarity, tile, cand_c)
         cols_my, bound_my, tmax_my = _phase1_scan(
             a_dense, b_slots, thr, left_starts[:-1], left_counts, tile=tile,
-            chunk=chunk, cand_c=cand_c, k_tile=kt0,
+            chunk=chunk, cand_c=cand_c, k_tile=kt0, t=t,
         )
     with span("match.mh_rescore_s", t, "rescore_s"):
         # --- phase 2: exact rescore over the right-shard ring + selection.
@@ -1033,7 +1088,7 @@ def multihost_sharded_fit_pairs(
             return np.where(valid, right_starts[proc_of] + within, -1)
 
         ring = _RingRescorer(
-            left_ell, right_ell, right_counts, config.tfidf_matrix_dtype
+            left_ell, right_ell, right_counts, config.tfidf_matrix_dtype, t
         )
 
         def score_select(cols_h: np.ndarray, row_ids_local: np.ndarray):
@@ -1116,7 +1171,7 @@ def multihost_sharded_fit_pairs(
                     cols_b, bound_b, _tmax_b = _phase1_scan(
                         _rows_of(a_dense, ub), b_slots, thr,
                         u_starts, u_counts, tile=tile, chunk=chunk_esc,
-                        cand_c=cand_s, k_tile=kt_s,
+                        cand_c=cand_s, k_tile=kt_s, t=t,
                     )
                     if complete and not _all_ranks_agree(
                         not np.isfinite(bound_b).any()
