@@ -955,9 +955,7 @@ def tri_square_ab(K, M, h, src, thr, seg_rows=73_728, n_pad=589_824):
     shape: the unique rows the matcher scans (first row of each
     clean-equality group), zero-padded to whole segments."""
     tile, cand_c, bm = 4096, 64, 512
-    codes = M._clean_codes(src)
-    _, first = np.unique(codes, return_index=True)
-    first = np.sort(first)
+    first = M._clean_codes(src)[0][1].astype(np.int64)  # ascending
     n_u = len(first)
     assert n_u <= n_pad
     b = torch.zeros((n_pad, 512), dtype=torch.bfloat16, device=h.device)

@@ -227,8 +227,10 @@ def get_scorer_lib() -> Optional[ctypes.CDLL]:
     lib.fill_code_rows6.argtypes = [p_u8, p_i64, p_i32, i64, i64, p_u32]
     lib.gather_rows_u8.restype = None
     lib.gather_rows_u8.argtypes = [p_u8, p_i64, p_i64, i64, p_i64, p_u8]
-    lib.clean_group_codes.restype = None
-    lib.clean_group_codes.argtypes = [p_u8, p_i64, p_u64, i64, p_i64]
+    lib.clean_group_positions.restype = i64
+    lib.clean_group_positions.argtypes = [
+        p_u8, p_i64, p_u64, i64, p_i64, p_i32, p_i64, p_i64, p_i64,
+    ]
     lib.expand_dedup_phase1.restype = i64
     lib.expand_dedup_phase1.argtypes = [
         p_i64, p_i64, p_f64, i64, p_i64, p_i64, p_i64, i64, p_i64, i64,

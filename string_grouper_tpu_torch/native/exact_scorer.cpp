@@ -399,57 +399,115 @@ int64_t selfjoin_fixups_f64(
     return oo[n];
 }
 
-// Clean-equality duplicate grouping (ops/matcher.py _clean_refined_codes):
-// group rows by (row_hash, length), byte-verify every member against its
-// group's minimum-position representative, demote mismatches (hash
-// collisions) to fresh singleton groups.  Emits ONE group code per row;
-// the caller normalizes code order (matcher._group_positions), and the
-// collapse layer's output is provably invariant to the coding, so only
-// group MEMBERSHIP must match the numpy oracle.  Replaces two
-// corpus-sized numpy lexsorts + gather/verify temporaries (~0.4-1.5 s at
-// 663k on the weather-sensitive host) with one parallel-sorted pass.
-void clean_group_codes(
+// Clean-equality duplicate grouping of the collapse layer, in the canonical
+// form of ops/matcher.py _group_positions(_clean_refined_codes(src)), bit
+// for bit: rows group by (row_hash, length); every member is byte-verified
+// against its group's minimum-position row, and a mismatch (a hash
+// collision) becomes a singleton group.  Group ids ascend by first
+// occurrence: first_out[g] is group g's minimum position, and its positions,
+// ascending, are perm_out[starts_out[g] .. starts_out[g] + counts_out[g]).
+// The canonical form depends only on the partition, so the partition may be
+// built in any order of work.
+//   1. Partition: a parallel scatter of (hash, length, position) keys into
+//      buckets by the top bits of the mixed hash (equal hashes share a
+//      bucket), then, bucket by bucket in parallel, a sort and a memcmp
+//      sweep that writes each row's group representative into codes_out.
+//   2. Relabel: one walk over the positions; a row that is its own
+//      representative opens the next group id, any other row takes its
+//      representative's (a smaller position, already relabeled).
+//   3. Positions: exclusive prefix sum of the counts, then a scatter in
+//      position order.
+// codes_out and perm_out hold n values; first_out, starts_out and
+// counts_out need room for n (the group count is returned).
+int64_t clean_group_positions(
     const uint8_t* flat, const int64_t* coff, const uint64_t* hashes,
-    int64_t n, int64_t* codes_out)
+    int64_t n, int64_t* codes_out, int32_t* first_out, int64_t* perm_out,
+    int64_t* starts_out, int64_t* counts_out)
 {
+    if (n <= 0) return 0;
     struct Key { uint64_t h; int64_t len; int64_t idx; };
+    int bits = 0;  // ~64 keys a bucket, at most 2^16 buckets
+    while (bits < 16 && (int64_t(64) << (bits + 1)) <= n) ++bits;
+    const int64_t nb = int64_t(1) << bits;
+    auto bucket_of = [bits](uint64_t h) -> int64_t {
+        return bits ? int64_t((h * 0x9E3779B97F4A7C15ull) >> (64 - bits)) : 0;
+    };
     std::vector<Key> keys(n);
-#pragma omp parallel for schedule(static)
+    std::vector<int64_t> bstart(nb + 1);
+    std::vector<int64_t> hist;
+#pragma omp parallel
+    {
+        const int team = omp_get_num_threads();
+        const int t = omp_get_thread_num();
+#pragma omp single
+        hist.assign(size_t(team) * nb, 0);
+        const int64_t lo = n * t / team, hi = n * (t + 1) / team;
+        int64_t* mine = hist.data() + size_t(t) * nb;
+        for (int64_t i = lo; i < hi; ++i) ++mine[bucket_of(hashes[i])];
+#pragma omp barrier
+#pragma omp single
+        {
+            int64_t s = 0;
+            for (int64_t b = 0; b < nb; ++b) {
+                bstart[b] = s;
+                for (int tt = 0; tt < team; ++tt) {
+                    const int64_t c = hist[size_t(tt) * nb + b];
+                    hist[size_t(tt) * nb + b] = s;
+                    s += c;
+                }
+            }
+            bstart[nb] = s;
+        }
+        for (int64_t i = lo; i < hi; ++i) {
+            keys[mine[bucket_of(hashes[i])]++] =
+                Key{hashes[i], coff[i + 1] - coff[i], i};
+        }
+#pragma omp barrier
+#pragma omp for schedule(dynamic, 16)
+        for (int64_t b = 0; b < nb; ++b) {
+            Key* kb = keys.data() + bstart[b];
+            Key* ke = keys.data() + bstart[b + 1];
+            std::sort(kb, ke, [](const Key& x, const Key& y) {
+                if (x.h != y.h) return x.h < y.h;
+                if (x.len != y.len) return x.len < y.len;
+                return x.idx < y.idx;
+            });
+            int64_t rep = -1;
+            for (Key* k = kb; k < ke; ++k) {
+                if (k == kb || k->h != k[-1].h || k->len != k[-1].len) {
+                    rep = k->idx;
+                    codes_out[k->idx] = rep;
+                } else if (k->len == 0 ||
+                           std::memcmp(flat + coff[k->idx], flat + coff[rep],
+                                       size_t(k->len)) == 0) {
+                    codes_out[k->idx] = rep;
+                } else {
+                    codes_out[k->idx] = k->idx;  // a collision: a singleton
+                }
+            }
+        }
+    }
+    int64_t u = 0;
     for (int64_t i = 0; i < n; ++i) {
-        keys[i] = Key{hashes[i], coff[i + 1] - coff[i], i};
-    }
-    std::sort(keys.begin(), keys.end(), [](const Key& a, const Key& b) {
-        if (a.h != b.h) return a.h < b.h;
-        if (a.len != b.len) return a.len < b.len;
-        return a.idx < b.idx;
-    });
-    int64_t gid = -1;
-    std::vector<int64_t> bad;
-    int64_t run_rep = -1;
-    for (int64_t k = 0; k < n; ++k) {
-        const Key& cur = keys[k];
-        const bool new_group =
-            k == 0 || cur.h != keys[k - 1].h || cur.len != keys[k - 1].len;
-        if (new_group) {
-            ++gid;
-            run_rep = cur.idx;
-            codes_out[cur.idx] = gid;
-            continue;
-        }
-        const int64_t len = cur.len;
-        if (len == 0 ||
-            std::memcmp(flat + coff[cur.idx], flat + coff[run_rep],
-                        size_t(len)) == 0) {
-            codes_out[cur.idx] = gid;
+        const int64_t rep = codes_out[i];
+        if (rep == i) {
+            first_out[u] = int32_t(i);
+            counts_out[u] = 1;
+            codes_out[i] = u++;
         } else {
-            bad.push_back(cur.idx);
+            const int64_t g = codes_out[rep];
+            codes_out[i] = g;
+            ++counts_out[g];
         }
     }
-    // Demoted rows become fresh singleton groups after the last gid, in
-    // ascending position order (matching the oracle's membership shape).
-    std::sort(bad.begin(), bad.end());
-    int64_t next = gid + 1;
-    for (int64_t b : bad) codes_out[b] = next++;
+    int64_t s = 0;
+    for (int64_t g = 0; g < u; ++g) {
+        starts_out[g] = s;
+        s += counts_out[g];
+    }
+    std::vector<int64_t> cur(starts_out, starts_out + u);
+    for (int64_t i = 0; i < n; ++i) perm_out[cur[codes_out[i]]++] = i;
+    return u;
 }
 
 // Thread-count plumbing for the reference's ``number_of_processes`` knob

@@ -312,14 +312,50 @@ def _chunked_shape_ok(n_seg: int, seg_rows: int, tile: int, n_right_p: int,
     )
 
 
-def _clean_codes(src) -> Optional[np.ndarray]:
-    """``_clean_refined_codes`` of a payload, computed once (cached on it:
-    the chunked-pipeline predicate and the collapse layer both read it)."""
+def _clean_codes(src):
+    """A payload's clean-equality grouping, computed once (cached on it: the
+    chunked-pipeline predicate and the collapse layer both read it):
+    ``(groups, native)``, where ``groups`` is ``_group_positions``' tuple
+    ``(codes, first, perm, starts, counts)`` (None without row hashes) and
+    ``native`` says whether the native pass made it.  With the native
+    library loaded one pass (``clean_group_positions``) emits the canonical
+    form directly; without it the numpy chain
+    ``_group_positions(_clean_refined_codes(src))`` gives the same bits."""
     cached = getattr(src, "_clean_codes", None)
     if cached is None:
-        cached = (_clean_refined_codes(src),)
+        from ..native import get_scorer_lib
+
+        lib = get_scorer_lib()
+        if src.row_hash is None:
+            cached = (None, False)
+        elif lib is not None:
+            cached = (_native_clean_groups(lib, src), True)
+        else:
+            cached = (_group_positions(_clean_refined_codes(src)), False)
         object.__setattr__(src, "_clean_codes", cached)
-    return cached[0]
+    return cached
+
+
+def _native_clean_groups(lib, src):
+    """``clean_group_positions`` of a payload: ``_group_positions``' tuple,
+    bit for bit that of the numpy chain."""
+    h = np.ascontiguousarray(src.row_hash, dtype=np.uint64)
+    coff = np.ascontiguousarray(src.coff, dtype=np.int64)
+    flat = np.ascontiguousarray(src.flat_codes, dtype=np.uint8)
+    n = len(h)
+    if len(coff) != n + 1 or (n and coff[-1] > len(flat)):
+        raise ValueError(
+            f"payload of {n} rows has {len(coff)} offsets over {len(flat)} bytes"
+        )
+    codes = np.empty(n, dtype=np.int64)
+    first = np.empty(n, dtype=np.int32)
+    perm = np.empty(n, dtype=np.int64)
+    starts = np.empty(n, dtype=np.int64)
+    counts = np.empty(n, dtype=np.int64)
+    u = lib.clean_group_positions(
+        flat, coff, h, n, codes, first, perm, starts, counts
+    )
+    return codes, first[:u], perm, starts[:u], counts[:u]
 
 
 def chunked_p1_will_engage(ell: EllMatrix, is_self: bool,
@@ -346,7 +382,7 @@ def chunked_p1_will_engage(ell: EllMatrix, is_self: bool,
         and _chunked_p1_size_ok(ell.n_rows)
     ):
         return False
-    n = len(np.unique(_clean_codes(src)))  # the rows the matcher will scan
+    n = len(_clean_codes(src)[0][1])  # the rows the matcher will scan
     tile, n_right_p, _, _, n_seg, _, _, seg_rows = _p1_geometry(
         n, n, left_chunk, right_tile
     )
@@ -2015,27 +2051,12 @@ def _clean_refined_codes(src) -> Optional[np.ndarray]:
     regardless of raw differences, so they can share one matcher row --
     a strictly coarser grouping than raw equality.  Hash groups are
     byte-VERIFIED against their representative (mismatching rows demote to
-    fresh singleton groups), so a hash collision costs only the check."""
+    fresh singleton groups), so a hash collision costs only the check.
+    The route without the native library, and the oracle of its one-pass
+    ``clean_group_positions`` (``_clean_codes``)."""
     h = getattr(src, "row_hash", None)
     if h is None:
         return None
-    from ..native import get_scorer_lib
-
-    lib = get_scorer_lib()
-    if lib is not None and hasattr(lib, "clean_group_codes"):
-        # Native one-pass grouping (parallel sort + memcmp verification)
-        # in place of the two corpus-sized numpy lexsorts below.
-        # Emits a different (but equivalent) coding order; the collapse
-        # layer normalizes and its output is coding-invariant.
-        codes = np.empty(len(h), dtype=np.int64)
-        lib.clean_group_codes(
-            np.ascontiguousarray(src.flat_codes),
-            np.ascontiguousarray(src.coff),
-            np.ascontiguousarray(h),
-            len(h),
-            codes,
-        )
-        return codes
     lens = src.row_lengths()
     n = len(h)
     order = np.lexsort((lens, h))
@@ -2232,6 +2253,24 @@ def duplicate_codes(series, ell: EllMatrix):
     return pd.factorize(pd.Series(series))[0]
 
 
+def _side_groups(m: EllMatrix, codes: Optional[np.ndarray], stats: dict):
+    """One list's duplicate grouping in ``_group_positions``' form: its
+    payload's clean-equality grouping where it has one (counting the rows
+    in ``stats["collapse_native_rows"]`` when the native pass made it),
+    else the caller's coding's; None without either, or for a coding of
+    another length than the list."""
+    src = getattr(m, "device_src", None) if device_encode_enabled() else None
+    groups, native = _clean_codes(src) if src is not None else (None, False)
+    if groups is not None:
+        if native:
+            stats["collapse_native_rows"] += m.n_rows
+    elif codes is not None:
+        groups = _group_positions(codes)
+    if groups is None or len(groups[0]) != m.n_rows:
+        return None
+    return groups
+
+
 def match_with_collapse(
     left: EllMatrix,
     right_m: EllMatrix,
@@ -2252,9 +2291,12 @@ def match_with_collapse(
     When the byte-level payload is present (and ``SG_TPU_DEVICE_ENCODE`` is
     not 0), its per-row hashes provide a (strictly coarser, byte-verified)
     duplicate coding by CLEANED content, superseding any raw-equality coding
-    the caller passed.  With an effective coding that actually collapses
-    something, the scan runs over unique rows and the result expands back
-    exactly (``_expand_dedup``); otherwise the plain whole-corpus pass runs.
+    the caller passed; with the native library loaded one native pass
+    groups it (``_clean_codes``), and ``stats["collapse_native_rows"]``
+    counts the rows it grouped, both lists together.  With an effective
+    coding that actually collapses something, the scan runs over unique
+    rows and the result expands back exactly (``_expand_dedup``);
+    otherwise the plain whole-corpus pass runs.
     """
     if left.n_rows == 0 or right_m.n_rows == 0:
         # Engine callers never get here (the encoder raises sklearn's
@@ -2263,43 +2305,17 @@ def match_with_collapse(
         z = np.zeros(0, dtype=np.int64)
         return MatchPairs(rows=z, cols=z, sims=np.zeros(0),
                           true_max_n_matches=0, stats={})
-    stats: dict = {}
+    stats: dict = {"collapse_native_rows": 0}
     with span("match.collapse", stats, "collapse"):
-        if device_encode_enabled():
-            src_l = getattr(left, "device_src", None)
-            refined = _clean_codes(src_l) if src_l is not None else None
-            if refined is not None:
-                left_codes = refined
-            if not is_self:
-                src_r = getattr(right_m, "device_src", None)
-                refined_r = (
-                    _clean_refined_codes(src_r) if src_r is not None else None
-                )
-                if refined_r is not None:
-                    right_codes = refined_r
-        dedup = (
-            left_codes is not None
-            and len(left_codes) == left.n_rows
-            and (
-                is_self
-                or (
-                    right_codes is not None
-                    and len(right_codes) == right_m.n_rows
-                )
-            )
+        groups_l = _side_groups(left, left_codes, stats)
+        groups_r = groups_l if is_self else (
+            _side_groups(right_m, right_codes, stats)
+            if groups_l is not None else None
         )
+        dedup = groups_r is not None
         if dedup:
-            codes_l, first_l, perm_l, starts_l, counts_l = _group_positions(
-                left_codes
-            )
-            if is_self:
-                codes_r, first_r, perm_r, starts_r, counts_r = (
-                    codes_l, first_l, perm_l, starts_l, counts_l
-                )
-            else:
-                codes_r, first_r, perm_r, starts_r, counts_r = _group_positions(
-                    right_codes
-                )
+            codes_l, first_l = groups_l[:2]
+            _, first_r, perm_r, starts_r, counts_r = groups_r
             u_left, u_right = len(first_l), len(first_r)
             # Only pay the expansion machinery when something actually
             # collapses.

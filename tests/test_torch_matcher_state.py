@@ -164,12 +164,13 @@ def test_engine_reads_last_stats_when_pairs_carry_none(monkeypatch):
 
 
 #: ``timings`` keys only the port has: its escalation counters per rung and
-#: of the rows run on ``p1_fused_topk``, the calling thread's wait for the
-#: scoring worker, on the replicated tier each rank's matcher stats, and on
-#: the sharded tier its collectives' and ring's seconds and bytes, the world
-#: and the slots
+#: of the rows run on ``p1_fused_topk``, the rows its native duplicate
+#: grouping grouped, the calling thread's wait for the scoring worker, on
+#: the replicated tier each rank's matcher stats, and on the sharded tier
+#: its collectives' and ring's seconds and bytes, the world and the slots
 PORT_ONLY = re.compile(
-    r"match\.(mh_local_\w+|esc_rows_r\d+_kt\d+|esc_kernel_rows|rescore_wait"
+    r"match\.(mh_local_\w+|esc_rows_r\d+_kt\d+|esc_kernel_rows"
+    r"|collapse_native_rows|rescore_wait"
     r"|mh_(replicate|exchange|ring)_bytes|mh_(replicate|exchange|ring_bcast)_s"
     r"|mh_world|mh_slots)")
 

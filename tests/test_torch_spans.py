@@ -160,10 +160,13 @@ def test_timings_keys_before_the_spans_plus_frame_and_rescore_wait():
     secs = _fit_and_frame().timings.seconds
     rungs = {k for k in secs if ESC_ROWS.fullmatch(k)}
     assert rungs
-    # and the count of escalated rows that ran on p1_fused_topk: none here
+    # and the count of escalated rows that ran on p1_fused_topk: none here;
+    # and of the rows the native duplicate grouping grouped: all of them
     assert set(secs) - rungs == KEYS_BEFORE | {"frame", "match.rescore_wait",
-                                               "match.esc_kernel_rows"}
+                                               "match.esc_kernel_rows",
+                                               "match.collapse_native_rows"}
     assert secs["match.esc_kernel_rows"] == 0
+    assert secs["match.collapse_native_rows"] == len(NAMES)
     assert isinstance(secs["match.rounds"], int)
     assert isinstance(secs["match.pairs_scored"], int)
 
