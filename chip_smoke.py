@@ -27,7 +27,8 @@ Phases (any failure raises and the script exits non-zero without a result):
    by phase 2's rule (rows with a score within TOL of thr excepted); then,
    with the counts set to 0, each timed (CUDA events) beside its bound,
    ``p1_fused_closed2`` and ``torch.mm``.  No path of the matcher launches
-   either: every main-path run below must count 0 of both.
+   either: every main-path run below must count 0 of both (and 0 of
+   ``p1_fused_chain``, which phases 2b, 3b, 2w and 2x launch alone).
 2b. Both scan kernels (``p1_fused_closed2``, ``p1_fused_chain``) against
    their plain versions over the rest of their domain: m = 256 and 300
    (ragged), d = 128, 256, 384 (the hash's first d columns, renormalised)
@@ -37,8 +38,9 @@ Phases (any failure raises and the script exits non-zero without a result):
    bitwise identical; and against the plain version run on the CPU over the
    first 20,000 rows (both sum each bucket in window order: the count of
    elements that differ is printed, 1 bf16 ulp allowed).
-3b. Kernel ``p1_fused_chain`` at the chunked pipeline's shape (A 73,728
-   rows, two chunks of 294,912 rows): each pass against its plain version
+3b. Kernel ``p1_fused_chain`` (off the matcher's path; it stands for the
+   JAX package's Pallas kernel) at the 663k chunk shape (A 73,728 rows,
+   two chunks of 294,912 rows): each pass against its plain version
    (the rule of phase 2), and the chained kernel passes BITWISE one
    ``p1_fused_closed2`` kernel pass over the concatenated chunks.
 3c. Kernel ``p1_tri_fused`` over the segment loop at n = 131,072 (segments
@@ -108,9 +110,8 @@ Phases (any failure raises and the script exits non-zero without a result):
    run's grouper, with no refit: ``get_groups()`` (time, group count), and
    the torch op ``_cc_labels`` on the card over its matches list, equal to
    the native union-find's labels, each timed (the op beside its bytes
-   bound).  Then the same self-join with the column-chunked pipeline
-   (SG_TPU_CHUNKED_P1=1) at G = 2 and G = 3 chunks, and on the packed-slot
-   path (SG_TPU_DEVICE_ENCODE=0: no ``device_hash_codes`` launch): the same
+   bound).  Then the same self-join on the packed-slot path
+   (SG_TPU_DEVICE_ENCODE=0: no ``device_hash_codes`` launch): the same
    frame, with p1_wait and wall printed.  Last, ``match_most_similar`` of
    the 663,000 names against 100,000 others: wall, phases, launches,
    100,000 output rows, and the verbatim check of
@@ -129,12 +130,10 @@ Phases (any failure raises and the script exits non-zero without a result):
    (4,558,752 rows, phase 5's default frame; wall, timings, escalated rows
    per kt, pairs rescored and launches printed; ``p1_fused_closed2``
    launched, no ``p1_fused_topk`` launch (d > 512) and no kt = 2 pass on
-   the matcher's torch-op body), the same
-   under SG_TPU_CHUNKED_P1=1 (``p1_fused_chain`` launched); at 20,000
-   names card == CPU == phase 4's frame, SG_TPU_FUSED=0 the same frame with
-   no kernel launch (its wall beside the kernel's), a (2, 2) virtual mesh
-   the same frame with one launch per shard; and phase 4's fp64 oracle at
-   5,000 names.
+   the matcher's torch-op body); at 20,000 names card == CPU == phase 4's
+   frame, SG_TPU_FUSED=0 the same frame with no kernel launch (its wall
+   beside the kernel's), a (2, 2) virtual mesh the same frame with one
+   launch per shard; and phase 4's fp64 oracle at 5,000 names.
 6. The mesh tier (``mesh=``: the host encode, then phase 1 per
    (segment, shard) on each shard's device).  At 20,000 names
    ``match_strings`` under ``make_mesh()`` (every visible GPU) and under
@@ -226,10 +225,8 @@ N_NEAREST = 100_000
 # far less than this.
 TOL = 1e-5
 # Kernels each path launches: the default self-join (and its kt=2
-# escalation), and the column-chunked one (its escalation may add
-# p1_fused_closed2).
+# escalation).
 DEFAULT_PATH = ("p1_fused_closed2", "device_hash_codes")
-CHUNKED_PATH = ("p1_fused_chain", "device_hash_codes")
 # ... and the packed-slot path (payload-less corpora, SG_TPU_DEVICE_ENCODE=0),
 # whose hash is the torch op ``_device_hash``: device_hash_codes must stay 0.
 PACKED_PATH = ("p1_fused_closed2",)
@@ -242,8 +239,9 @@ TOPK_ROWS = 4096
 # p1_fused_closed2's registers a thread, in both of its instantiations
 # (ptxas; 65,536 / 384 threads).
 CLOSED2_REGISTERS = 168
-# The epilogue's A/B kernels: no path of the matcher launches them.
-AB_KERNELS = ("p1_mm_floor", "p1_closed2_variant")
+# Kernels no path of the matcher launches: the epilogue's A/B kernels and
+# the chained scan, which stands for the JAX package's Pallas kernel.
+OFF_PATH_KERNELS = ("p1_fused_chain", "p1_mm_floor", "p1_closed2_variant")
 # Rows of the 663k payload that phase 3 also hashes with the plain version
 # on the CPU.
 N_HASH_CPU = 20_000
@@ -294,8 +292,9 @@ def cuda_ms(fn, reps: int, warmup: bool = True) -> float:
 
 
 def assert_off_path(launches, label):
-    """A main-path run launched neither of the epilogue's A/B kernels."""
-    assert all(launches[k] == 0 for k in AB_KERNELS), f"{label}: launches {launches}"
+    """A main-path run launched none of the kernels off the matcher's path."""
+    assert all(launches[k] == 0 for k in OFF_PATH_KERNELS), (
+        f"{label}: launches {launches}")
 
 
 def gpu_line() -> str:
@@ -585,9 +584,9 @@ def check_p1_domain(K, h, thr, n=16_384, chunk=8_192, tile=4_096,
 
 # ----------------------------------------------------------------- phase 3b
 def check_chain(K, h, thr, m=73_728, chunk=294_912):
-    """``p1_fused_chain`` at the 663k chunked pipeline's shape: a segment of
-    73,728 rows against its first chunk at G = 2 (4 segments) and one more
-    of the same width."""
+    """``p1_fused_chain`` at the 663k chunk shape: a segment of 73,728 rows
+    (one of the eight of the unique rows' padded scan) against a chunk of
+    half the columns, and one more of the same width."""
     tile, cand_c = 4096, 64
     a = h[:m].contiguous()
     b = h[:2 * chunk].contiguous()
@@ -1994,7 +1993,7 @@ def main() -> int:
     del traced_df, events
     shutil.rmtree(trace_dir, ignore_errors=True)
 
-    # ---- phase 5: the full self-join, default, chunked and packed ----------
+    # ---- phase 5: the full self-join, default and packed -------------------
     stamp("phase 5: the 663k self-joins")
     s_full = pd.Series(names_full)
     # the caller's TF32 setting: on through the phase, still on after it
@@ -2055,16 +2054,6 @@ def main() -> int:
         f"{n_groups} groups of {N_FULL} names")
     check_cc_labels(CC, grouper._matches_list, N_FULL, dev)
     del grouper, groups
-    os.environ["SG_TPU_CHUNKED_P1"] = "1"
-    chain_launches = None
-    for groups in ("2", "3"):
-        os.environ["SG_TPU_CHUNKED_P1_GROUPS"] = groups
-        frame, l_chunked, _ = self_join(f"SG_TPU_CHUNKED_P1=1, G={groups}", CHUNKED_PATH)
-        pd.testing.assert_frame_equal(frame, out)
-        chain_launches = chain_launches or l_chunked["p1_fused_chain"]
-        del frame
-    del os.environ["SG_TPU_CHUNKED_P1"], os.environ["SG_TPU_CHUNKED_P1_GROUPS"]
-    log("chunked self-joins: frames equal to the default run's")
 
     # the packed-slot path on the payload corpus: no clean-equality
     # collapse, no prefetch; each call of the torch op is counted and its
@@ -2185,19 +2174,6 @@ def main() -> int:
     pd.testing.assert_frame_equal(frame, out)
     log("hash_dim=1024 self-join: frame equal to the default (hash_dim=512) run's")
     del grouper, frame
-    os.environ["SG_TPU_CHUNKED_P1"] = "1"
-    try:
-        K.reset_launches()
-        frame = sgt.match_strings(s_full, **wide)
-        l_wide_chunked = dict(K.LAUNCHES)
-    finally:
-        del os.environ["SG_TPU_CHUNKED_P1"]
-    assert l_wide_chunked["p1_fused_chain"] > 0, f"chunked launches {l_wide_chunked}"
-    assert_off_path(l_wide_chunked, "663k hash_dim=1024 chunked")
-    pd.testing.assert_frame_equal(frame, out)
-    log(f"hash_dim=1024 self-join, SG_TPU_CHUNKED_P1=1: frame equal to the default "
-        f"run's; launches {l_wide_chunked}")
-    del frame
 
     stamp(f"phase 5w: hash_dim=1024 at {N_FRAME} names (card, CPU, SG_TPU_FUSED=0, "
           f"(2, 2) mesh) and the oracle at {N_ORACLE}")
@@ -2392,9 +2368,8 @@ def main() -> int:
                                   launches=l_wide["p1_fused_closed2"])),
         dict(name="p1_fused_chain", route="cuda",
              source=src.format("p1_fused_chain"), replaces=pk.format(275),
-             launches=chain_launches + l_wide_chunked["p1_fused_chain"], **res_chain,
-             d1024=dict(wide_rows["p1_fused_chain"],
-                        launches=l_wide_chunked["p1_fused_chain"])),
+             launches=0, **res_chain,
+             d1024=dict(wide_rows["p1_fused_chain"], launches=0)),
         dict(name="p1_tri_fused", route="cuda",
              source=src.format("p1_tri_fused"), replaces=pk.format(626),
              launches=tri_launches, **res_tri,

@@ -30,7 +30,6 @@ from .corpus import TfidfEncoder
 from .frame import assemble_groups, assemble_matches, assemble_nearest_matches
 from .native import set_native_threads
 from .ops.matcher import (
-    chunked_p1_will_engage,
     duplicate_codes,
     prefetch_corpus_hash,
     topn_cosine_matches,
@@ -255,17 +254,9 @@ class StringGrouper:
             # The hash builds where phase 1 reads it: on the device, or on
             # the mesh's first slot, whence the mesh tier moves its shards.
             hash_dev = self._device if cfg.mesh is None else cfg.mesh.devices[0, 0]
-            # Skipped when the matcher will pipeline column-chunked uploads
-            # instead (opt-in, large single-device self-joins): a full
-            # upload queued ahead of the chunks would serialize the very
-            # head the pipeline overlaps with the scan.
-            if cfg.mesh is not None or not chunked_p1_will_engage(
-                master_ell, is_self, cfg.min_similarity, max_n, cfg.hash_dim,
-                cfg.left_chunk, cfg.right_tile, self._device,
-            ):
-                prefetch_corpus_hash(master_ell, cfg.hash_dim, hash_dev)
-                if not is_self:
-                    prefetch_corpus_hash(dupes_ell, cfg.hash_dim, hash_dev)
+            prefetch_corpus_hash(master_ell, cfg.hash_dim, hash_dev)
+            if not is_self:
+                prefetch_corpus_hash(dupes_ell, cfg.hash_dim, hash_dev)
 
         with self.timings.phase("match"):
             left_codes = duplicate_codes(self._master, master_ell)

@@ -27,7 +27,8 @@ a virtual mesh's device slots) the card's default frame.  Under
 same frame; the torch op ``hashed_projection`` gives the CPU's bits.
 The epilogue A/B kernels ``p1_mm_floor`` and ``p1_closed2_variant`` (every
 switch) must equal ``p1_fused_closed2`` bitwise and their plain versions
-on dyadic inputs; the default match path launches neither.  A traced
+on dyadic inputs; the default match path launches neither, nor the
+chained ``p1_fused_chain``.  A traced
 match (``utils.profiling.trace``) holds the fused kernel's events, and a
 match leaves the caller's TF32 setting as it was.
 """
@@ -353,6 +354,7 @@ def test_default_match_launches_no_ab_kernel_and_keeps_tf32(dev):
         torch.set_float32_matmul_precision("highest")
     assert K.LAUNCHES["p1_fused_closed2"] > 0, K.LAUNCHES
     assert K.LAUNCHES["p1_mm_floor"] == K.LAUNCHES["p1_closed2_variant"] == 0
+    assert K.LAUNCHES["p1_fused_chain"] == 0, K.LAUNCHES
 
 
 def test_trace_holds_the_fused_kernel(dev, tmp_path):
@@ -427,22 +429,6 @@ def test_match_strings_card_equals_cpu(dev):
     card = sgt.match_strings(s)
     assert all(K.LAUNCHES[k] > 0 for k in DEFAULT_PATH), K.LAUNCHES
     pd.testing.assert_frame_equal(card, sgt.match_strings(s, device="cpu"))
-
-
-def test_chunked_match_strings_card_equals_default(dev, monkeypatch):
-    """SG_TPU_CHUNKED_P1=1 (size floor lowered; 256-row chunks give 8
-    segments at 20,000 names): chained kernel passes, the default frame."""
-    s = pd.Series(synthetic_company_names(20000, seed=7))
-    knobs = dict(left_chunk=256, right_tile=256)
-    want = sgt.match_strings(s, **knobs)
-    monkeypatch.setattr(M, "_CHUNKED_P1_MIN_ROWS", 1000)
-    for groups in ("2", "3"):
-        monkeypatch.setenv("SG_TPU_CHUNKED_P1", "1")
-        monkeypatch.setenv("SG_TPU_CHUNKED_P1_GROUPS", groups)
-        K.reset_launches()
-        got = sgt.match_strings(s, **knobs)
-        assert K.LAUNCHES["p1_fused_chain"] > 0, K.LAUNCHES
-        pd.testing.assert_frame_equal(got, want)
 
 
 def test_kt2_escalation_rows_card_equals_cpu(dev):

@@ -1,7 +1,8 @@
 """The port's ``StringGrouper`` lifecycle against the JAX package's, on the
 CPU: option and data resets invalidate the fit, the method twins' kwargs
 reach the encoder, ``add_match`` / ``remove_match`` sequences leave the same
-matches list and groups, and the errors are the same.  Frames are compared
+matches list and groups, and the errors are the same; a fit prefetches
+each list's corpus hash once and phase 1 reads it.  Frames are compared
 exactly (``check_exact``)."""
 
 import warnings
@@ -12,7 +13,11 @@ import pytest
 
 import string_grouper_tpu as sgj
 import string_grouper_tpu_torch as sgt
+import string_grouper_tpu_torch.engine as TE
 from string_grouper_tpu_torch.corpus.tfidf import EllMatrix
+from string_grouper_tpu_torch.ops import kernels as TK
+from string_grouper_tpu_torch.ops import matcher as TM
+from string_grouper_tpu_torch.utils.synthetic import synthetic_company_names
 
 from test_reference_conformance import SimpleExample
 from test_torch_api import assert_same as frame_eq
@@ -231,3 +236,66 @@ def test_setters_validate():
         t.master = pd.Series(["a", 1])
     with pytest.raises(TypeError):
         t.duplicates = "not a series"
+
+
+PREFETCH_NAMES = synthetic_company_names(6300)
+PREFETCH_DUPES = synthetic_company_names(4096, seed=7)
+PREFETCH_KNOBS = dict(left_chunk=256, right_tile=256)
+
+
+@pytest.mark.parametrize("retired_knob", [{}, {"SG_TPU_CHUNKED_P1": "1",
+                                               "SG_TPU_CHUNKED_P1_GROUPS": "2"}],
+                         ids=["knob_unset", "knob_set"])
+@pytest.mark.parametrize("cross", [False, True], ids=["self", "cross"])
+def test_fit_prefetches_each_list_once_and_scans_from_it(
+        monkeypatch, cross, retired_knob):
+    """Every single-device fit prefetches each list's corpus hash exactly
+    once, and phase 1 gathers from that prefetch and builds no hash of its
+    own: with the fused branch open (``_on_card`` patched), over several
+    segments, and whatever the retired column-chunked pipeline's variables
+    say.  The frame is the JAX package's."""
+    args = [pd.Series(PREFETCH_NAMES)]
+    if cross:
+        args.append(pd.Series(PREFETCH_DUPES))
+    want = sgj.match_strings(*args, **PREFETCH_KNOBS)
+
+    monkeypatch.setattr(TM, "_on_card", lambda device: True)
+    # The retired pipeline engaged only from this many rows up: lowered, so
+    # that the variables below would have turned it on at this size.
+    monkeypatch.setattr(TM, "_CHUNKED_P1_MIN_ROWS", 1000, raising=False)
+    for var in ("SG_TPU_CHUNKED_P1", "SG_TPU_CHUNKED_P1_GROUPS"):
+        monkeypatch.delenv(var, raising=False)
+    for var, value in retired_knob.items():
+        monkeypatch.setenv(var, value)
+    seen = {}
+
+    def spy(module, name):
+        real = getattr(module, name)
+        seen[name] = []
+
+        def recorded(*a, **k):
+            out = real(*a, **k)
+            seen[name].append((a, out))
+            return out
+
+        monkeypatch.setattr(module, name, recorded)
+
+    for module, name in ((TE, "prefetch_corpus_hash"),
+                         (TM, "_build_hash_from_codes"),
+                         (TM, "_prefetched_hash"), (TM, "_device_hash"),
+                         (TM, "p1_fused_closed2"), (TK, "p1_fused_chain")):
+        spy(module, name)
+
+    got = sgt.match_strings(*args, **CPU, **PREFETCH_KNOBS)
+
+    n_lists = len(args)
+    prefetched = {id(a[0]) for a, _ in seen["prefetch_corpus_hash"]}
+    assert len(seen["prefetch_corpus_hash"]) == len(prefetched) == n_lists
+    # the prefetch worker's builds, one a list, and no other
+    assert len(seen["_build_hash_from_codes"]) == n_lists
+    assert not seen["_device_hash"]
+    gathers = seen["_prefetched_hash"]
+    assert gathers and all(out is not None for _, out in gathers)
+    assert len({id(a[0]) for a, _ in gathers}) == n_lists
+    assert seen["p1_fused_closed2"] and not seen["p1_fused_chain"]
+    frame_eq(got, want)

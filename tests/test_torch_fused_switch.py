@@ -1,15 +1,15 @@
 """The ``SG_TPU_FUSED=0`` switch (``ops.matcher.fused_enabled``) reaches
 every site that can launch the fused phase-1 kernels, as the JAX package's
 does: the single-device scan (``_phase1_single.run_stream``) and its kt = 2
-escalation (``run_rows``), the chunked pipeline (its engine predicate and
-the matcher's ``chunked_ok``), the mesh tier's ``_phase1_distributed`` and
-the multi-process tiers' ``_phase1_scan``.
+escalation (``run_rows``), the mesh tier's ``_phase1_distributed`` and the
+multi-process tiers' ``_phase1_scan``.
 
 The kernels run on the card only, so these tests let the CPU take the
 fused branch by patching the one device check (``ops.matcher._on_card``,
-read by ``use_fused`` and the chunked pipeline's predicates) and count every call of the kernel wrappers (which
+read by ``use_fused``) and count every call of the kernel wrappers (which
 run their plain versions on CPU tensors).  Switch on: each site calls its
-kernel.  Switch off: none does, and the outputs are the same pairs.
+kernel.  Switch off: none does, and the outputs are the same pairs.  No
+site calls the chained kernel ``p1_fused_chain``, on or off.
 """
 
 import numpy as np
@@ -21,6 +21,7 @@ from string_grouper_tpu.corpus.tfidf import TfidfEncoder as JEncoder
 from string_grouper_tpu.ops import matcher as JMatcher
 from string_grouper_tpu_torch.config import StringGrouperConfig
 from string_grouper_tpu_torch.corpus import TfidfEncoder
+from string_grouper_tpu_torch.ops import kernels as K
 from string_grouper_tpu_torch.ops import matcher as M
 from string_grouper_tpu_torch.parallel import distributed as D
 from string_grouper_tpu_torch.parallel import make_mesh
@@ -31,7 +32,7 @@ from test_torch_matcher import _assert_pairs_equal, _carry
 
 CPU = torch.device("cpu")
 KNOBS = dict(left_chunk=256, right_tile=256)
-SITES = ("single_stream", "single_rows", "chunked", "mesh", "multihost")
+SITES = ("single_stream", "single_rows", "mesh", "multihost")
 
 
 @pytest.fixture(scope="module")
@@ -44,9 +45,7 @@ def ell():
 def launches(monkeypatch):
     """Fused branches open on the CPU; each kernel wrapper call counted."""
     monkeypatch.setattr(M, "_on_card", lambda device: True)
-    monkeypatch.setattr(M, "_CHUNKED_P1_MIN_ROWS", 1000)
-    for var in ("SG_TPU_FUSED", "SG_TPU_CHUNKED_P1", "SG_TPU_CHUNKED_P1_GROUPS"):
-        monkeypatch.delenv(var, raising=False)
+    monkeypatch.delenv("SG_TPU_FUSED", raising=False)
     count = {"p1_fused_closed2": 0, "p1_fused_chain": 0}
 
     def spy(mod, name):
@@ -59,14 +58,14 @@ def launches(monkeypatch):
         monkeypatch.setattr(mod, name, counted)
 
     spy(M, "p1_fused_closed2")
-    spy(M, "p1_fused_chain")
+    spy(K, "p1_fused_chain")
     spy(D, "p1_fused_closed2")  # the mesh and multi-process tiers' shards
     return count
 
 
 def _drive(site, ell, thr):
     """Run ``site`` once; return what it computed (host arrays)."""
-    if site in ("single_stream", "single_rows", "chunked"):
+    if site in ("single_stream", "single_rows"):
         run_stream, run_rows, _n, _tile = M._phase1_single(
             ell, ell, True, 128, device=CPU, **KNOBS)
         if site == "single_rows":
@@ -106,20 +105,13 @@ def _same_pairs(got, want, site):
 @pytest.mark.parametrize("site", SITES)
 def test_switch_reaches_site(site, ell, launches, monkeypatch):
     thr = float(M.effective_threshold(0.8))
-    kernel = "p1_fused_chain" if site == "chunked" else "p1_fused_closed2"
-    if site == "chunked":
-        monkeypatch.setenv("SG_TPU_CHUNKED_P1", "1")
-        args = (ell, True, 0.8, 20, 128, 256, 256, CPU)
-        assert M.chunked_p1_will_engage(*args)
     on = _drive(site, ell, thr)
-    assert launches[kernel] > 0, launches
-    for k in launches:
-        launches[k] = 0
+    assert launches["p1_fused_closed2"] > 0, launches
+    assert launches["p1_fused_chain"] == 0, launches
+    launches["p1_fused_closed2"] = 0
     monkeypatch.setenv("SG_TPU_FUSED", "0")
     off = _drive(site, ell, thr)
     assert launches == {"p1_fused_closed2": 0, "p1_fused_chain": 0}
-    if site == "chunked":
-        assert not M.chunked_p1_will_engage(*args)
     _same_pairs(off, on, site)
 
 

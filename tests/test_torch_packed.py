@@ -312,17 +312,10 @@ def test_device_encode_off_frame_equal(monkeypatch, cross):
     pd.testing.assert_frame_equal(off, sgj.match_strings(*args, **kw))
 
 
-def test_device_encode_off_skips_prefetch_and_chunking(monkeypatch):
-    # test_torch_chunked.py's shape: 3 segments of 2,048 unique rows
+def test_device_encode_off_skips_prefetch(monkeypatch):
     ell = TfidfEncoder(StringGrouperConfig()).fit_transform(
         synthetic_company_names(6300))
     assert ell.device_src is not None
-    monkeypatch.setattr(TM, "_CHUNKED_P1_MIN_ROWS", 1000)
-    monkeypatch.setattr(TM, "_on_card", lambda device: True)
-    monkeypatch.setenv("SG_TPU_CHUNKED_P1", "1")
-    args = (ell, True, 0.8, 20, 512, 256, 256, "cpu")
-    assert TM.chunked_p1_will_engage(*args)
     monkeypatch.setenv("SG_TPU_DEVICE_ENCODE", "0")
-    assert not TM.chunked_p1_will_engage(*args)
     TM.prefetch_corpus_hash(ell, 512, "cpu")
     assert getattr(ell.device_src, "_hash_prefetch", None) is None
